@@ -1,0 +1,377 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # Kronecker scale 21, N = 2**26; no options
+
+Phases, one or more lines each:
+
+1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
+2. the build of both CUDA kernels (one ``nvcc`` per source, in parallel);
+3. each kernel against its plain version on the card, over op x dtype x
+   stats x target skew x tile_m at V = 2**21, N = 2**26 (state
+   bit-identical, float ``add`` within rtol 2e-4 / atol 1e-6, conflicts
+   equal), then each kernel checked against and timed beside its plain
+   version on the main path's own message batch, and one
+   ``scatter_reduce_`` call timed on it;
+4. the main path: ``bfs``, ``sssp`` and ``pagerank`` (20 iterations) on a
+   Graph500 Kronecker graph (scale 21, edge factor 16, seed 0) on each of
+   the four commit backends, which must agree (ranks scaled by V within
+   rtol 2e-4 / atol 1e-6, rank mass within 1e-5 of 1), with the kernels'
+   launch counters zeroed before and read after;
+5. ``bfs`` and ``pagerank`` on a scale-16 graph against the
+   ``bfs_reference`` and float64 ``pagerank_reference`` oracles.
+
+Then one JSON line of per-kernel numbers and, last, the line
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+script exits non-zero without that line.  It needs one card and the
+checkout's ``src/``; it imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+ADD_RTOL, ADD_ATOL = 2e-4, 1e-6
+SCALE = 21                         # Kronecker scale of the main path's graph
+GRID_LOG2_V, GRID_LOG2_N = 21, 26  # phase 3's state and batch sizes
+REPS = 10                          # timed repeats per kernel
+SEED = 0
+OPS = ("min", "max", "add", "or", "first")
+KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
+    "coarse_commit": ("src/repro_torch/kernels/csrc/coarse_commit.cu",
+                      "src/repro/kernels/coarse_commit.py:52"),
+    "fused_route_commit": ("src/repro_torch/kernels/csrc/fused_wave.cu",
+                           "src/repro/kernels/fused_wave.py:55"),
+}
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms, after one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kron_targets(n: int, log2_v: int, gen, device):
+    """Targets with the Graph500 Kronecker in-degree skew (each id bit is
+    1 with probability b + d = 0.24), relabelled by a permutation."""
+    import torch
+    key = torch.zeros(n, dtype=torch.int64, device=device)
+    for _ in range(log2_v):
+        bit = torch.rand(n, generator=gen, device=device) < 0.24
+        key = key * 2 + bit.long()
+    perm = torch.randperm(1 << log2_v, generator=gen, device=device)
+    return perm[key]
+
+
+def grid_inputs(op, dtype, v, n, gen, device):
+    """(state, val) with each op's contract: 'first' = non-negative
+    payloads into partly empty (< 0) state, 'or' = truth values.  Float
+    payloads are multiples of 1/8, so sums stay exact in any order."""
+    import torch
+    def ints(lo, hi, k):
+        return torch.randint(lo, hi, (k,), generator=gen, device=device)
+    if op == "first":
+        state = torch.where(torch.rand(v, generator=gen, device=device)
+                            < 0.5, -1, ints(0, 50, v))
+        val = ints(0, 50, n)
+    elif op == "or":
+        state, val = ints(0, 2, v), ints(0, 2, n)
+    else:
+        state, val = ints(-50, 50, v), ints(-50, 50, n)
+        if dtype == torch.float32:
+            val = val / 8.0
+    return state.to(dtype), val.to(dtype)
+
+
+def compare(name, op, got, exp, stats) -> float:
+    """Raise unless the kernel's result equals the plain version's;
+    returns the state's max abs difference."""
+    import torch
+    if stats:
+        (got, got_c), (exp, exp_c) = got, exp
+        if int(got_c) != int(exp_c):
+            raise AssertionError(f"{name}: conflicts {int(got_c)} != plain "
+                                 f"{int(exp_c)}")
+    if op == "add" and got.dtype == torch.float32:
+        torch.testing.assert_close(got, exp, rtol=ADD_RTOL, atol=ADD_ATOL,
+                                   msg=lambda m: f"{name}: {m}")
+        return float((got - exp).abs().max())
+    if not torch.equal(got, exp):
+        bad = int((got != exp).sum())
+        raise AssertionError(f"{name}: {bad} state entries differ")
+    return 0.0
+
+
+def phase_kernel_grid(device, max_err):
+    """Phase 3: both kernels against their plain versions."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coarse_commit import coarse_commit_kernel
+    from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+    v, n = 1 << GRID_LOG2_V, 1 << GRID_LOG2_N
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    targets = {"uniform": torch.randint(0, v, (n,), generator=gen,
+                                        device=device),
+               "kronecker": kron_targets(n, GRID_LOG2_V, gen, device)}
+    width, base = 4, v // 2                      # fused layout with lanes
+    t0, cases = time.perf_counter(), 0
+    for skew, tgt in targets.items():
+        drop = torch.rand(n, generator=gen, device=device)
+        idx = torch.where(drop < 0.1, -1, tgt)
+        idx = torch.where(drop > 0.99, v + (tgt % 64), idx)   # past V
+        idx = idx.to(torch.int32).contiguous()
+        lane = torch.where(drop < 0.98, idx % width, width).to(torch.int32)
+        g_tgt = torch.where(idx >= 0, base + idx // width, -1).to(
+            torch.int32)
+        for op in OPS:
+            for dtype in (torch.int32, torch.float32):
+                state, val = grid_inputs(op, dtype, v, n, gen, device)
+                for stats in (False, True):
+                    for tile_m in (7, 256, 4096):
+                        runs = [
+                            ("coarse_commit", coarse_commit_kernel,
+                             ref.coarse_commit_ref, (state, idx, val),
+                             dict(block_v=512)),
+                            ("fused_route_commit", fused_route_commit_kernel,
+                             ref.fused_route_commit_ref, (state, idx, val),
+                             {})]
+                        if tile_m == 256:
+                            runs.append((
+                                "fused_route_commit",
+                                fused_route_commit_kernel,
+                                ref.fused_route_commit_ref,
+                                (state, g_tgt, val),
+                                dict(lane=lane, base=base, width=width)))
+                        for name, kernel, plain, kargs, kw in runs:
+                            kw = dict(kw, op=op, tile_m=tile_m, stats=stats)
+                            got = kernel(*kargs, **kw)
+                            exp = plain(*kargs, **kw)
+                            torch.cuda.synchronize()
+                            label = (f"{name}/{op}/{str(dtype)[6:]}/{skew}/"
+                                     f"tile_m={tile_m}/stats={stats}"
+                                     f"{'/lanes' if 'lane' in kw else ''}")
+                            err = compare(label, op, got, exp, stats)
+                            max_err[name] = max(max_err[name], err)
+                            cases += 1
+    say(f"phase 3: {cases} kernel-vs-plain cases agree at V=2^"
+        f"{GRID_LOG2_V}, N=2^{GRID_LOG2_N} "
+        f"({time.perf_counter() - t0:.1f} s); max |err| "
+        + ", ".join(f"{k}={e:.3g}" for k, e in max_err.items()))
+
+
+def phase_kernel_times(g, device, max_err):
+    """Each kernel checked against and timed beside its plain version on
+    the main path's batch (every edge a message, as in a PageRank
+    iteration), and one ``scatter_reduce_`` call.  Returns {kernel:
+    numbers} for f32 add."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.coarse_commit import coarse_commit_kernel
+    from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+    v, n = g.num_vertices, g.num_edges
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    idx = g.dst
+    bound_ms = (8 * n + 8 * v) / HBM_BYTES_PER_S * 1e3
+    library_index = idx.long()
+    out = {}
+    say(f"phase 3: the main path's batch (N={n}, V={v}), each kernel "
+        f"equal to its plain version, then median of {REPS}; bound = "
+        f"(8N + 8V) bytes / 3.35 TB/s = {bound_ms:.4f} ms")
+    for op, dtype, reduce in (("add", torch.float32, "sum"),
+                              ("min", torch.float32, "amin"),
+                              ("min", torch.int32, "amin")):
+        state, val = grid_inputs(op, dtype, v, n, gen, device)
+        buf = state.clone()
+        library = cuda_ms(lambda: buf.scatter_reduce_(
+            0, library_index, val, reduce), REPS)
+        for name, kernel, plain_fn in (
+                ("coarse_commit", coarse_commit_kernel,
+                 ref.coarse_commit_ref),
+                ("fused_route_commit", fused_route_commit_kernel,
+                 ref.fused_route_commit_ref)):
+            label = f"{name}/{op}/{str(dtype)[6:]}/main-path batch"
+            for stats in (False, True):
+                err = compare(f"{label}/stats={stats}", op,
+                              kernel(state, idx, val, op=op, stats=stats),
+                              plain_fn(state, idx, val, op=op, stats=stats),
+                              stats)
+                max_err[name] = max(max_err[name], err)
+            plain = cuda_ms(lambda: plain_fn(state, idx, val, op=op), REPS)
+            ms = cuda_ms(lambda: kernel(state, idx, val, op=op), REPS)
+            say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel {ms:.4f} ms"
+                f"  plain {plain:.4f} ms  scatter_reduce_ {library:.4f} ms"
+                f"  bound {bound_ms:.4f} ms")
+            if (op, dtype) == ("add", torch.float32):
+                out[name] = dict(ms=ms, plain_ms=plain, library_ms=library,
+                                 bound_ms=bound_ms)
+                stats_ms = cuda_ms(lambda: kernel(state, idx, val, op=op,
+                                                  stats=True), REPS)
+                say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel with "
+                    f"stats=True (tile_m=256) {stats_ms:.4f} ms")
+    return out
+
+
+def phase_main_path(g, device):
+    """Phase 4: BFS, SSSP and PageRank on every backend; the kernels'
+    launch counts of this phase are returned."""
+    import torch
+    from repro_torch.core.commit import BACKENDS, CommitSpec
+    from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.graphs.algorithms.pagerank import pagerank
+    from repro_torch.graphs.algorithms.sssp import sssp
+    from repro_torch.graphs.generators import random_weights
+    from repro_torch.kernels.coarse_commit import coarse_commit_kernel
+    from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+    src = int(torch.argmax(g.degrees))
+    gw = random_weights(g, seed=0)
+    results = {}
+    coarse_commit_kernel.launches = 0
+    fused_route_commit_kernel.launches = 0
+    for backend in BACKENDS:
+        spec = CommitSpec(backend=backend, m=None, stats=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rb = bfs(g, src, spec=spec)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sd, srounds = sssp(gw, src, spec=spec)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pr, _ = pagerank(g, iters=20, spec=spec)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results[backend] = (rb, sd, srounds, pr)
+        say(f"phase 4: {backend:6s} bfs {rb.rounds} rounds "
+            f"{(t1 - t0) / rb.rounds * 1e3:.2f} ms/round, "
+            f"{int(rb.messages)} messages; sssp {srounds} rounds "
+            f"{(t2 - t1) / srounds * 1e3:.2f} ms/round; pagerank "
+            f"{(t3 - t2) / 20 * 1e3:.2f} ms/iter; peak {peak:.2f} GiB")
+    launches = {"coarse_commit": coarse_commit_kernel.launches,
+                "fused_route_commit": fused_route_commit_kernel.launches}
+    # Ranks average 1/V, so they are compared scaled by V: the absolute
+    # tolerance then sits far below every rank, not above most of them.
+    v = g.num_vertices
+    rb0, sd0, sr0, pr0 = results["atomic"]
+    pr_err = 0.0
+    for backend, (rb, sd, sr, pr) in results.items():
+        if not torch.equal(rb.dist, rb0.dist):
+            raise AssertionError(f"bfs dist differs on {backend}")
+        if (rb.rounds, int(rb.messages)) != (rb0.rounds, int(rb0.messages)):
+            raise AssertionError(f"bfs rounds/messages differ on {backend}")
+        if not torch.equal(sd, sd0) or sr != sr0:
+            raise AssertionError(f"sssp dist/rounds differ on {backend}")
+        torch.testing.assert_close(pr * v, pr0 * v, rtol=ADD_RTOL,
+                                   atol=ADD_ATOL,
+                                   msg=lambda m: f"pagerank x V, {backend}: "
+                                                 f"{m}")
+        pr_err = max(pr_err, float(((pr - pr0).abs() / pr0.abs()).max()))
+    reached = int((rb0.dist < 2 ** 30).sum())
+    mass = float(pr0.double().sum())
+    if not (torch.isfinite(pr0).all() and abs(mass - 1) < 1e-5
+            and reached > 1):
+        raise AssertionError(f"main path output is not sane (pagerank mass "
+                             f"{mass!r}, bfs reached {reached})")
+    say(f"phase 4: all four backends agree (bfs reached {reached} of {v}; "
+        f"pagerank mass {mass:.9f}, largest relative difference from "
+        f"atomic {pr_err:.3g}); launches {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.graphs.algorithms.bfs import bfs, bfs_reference
+    from repro_torch.graphs.algorithms.pagerank import (pagerank,
+                                                         pagerank_reference)
+    from repro_torch.graphs.generators import kronecker
+    from repro_torch.kernels import _build
+    from repro_torch.core.commit import CommitSpec
+    device = torch.device("cuda")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    say(smi.stdout.strip().splitlines()[0])
+    say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    reports = _build.build()
+    regs = [line.strip() for log in reports.values()
+            for line in log.splitlines() if "spill" in line and
+            not line.strip().endswith("0 bytes spill loads")]
+    say(f"phase 2: built {sorted(reports) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s; ptxas spill lines with loads: "
+        f"{len(regs)}")
+
+    max_err = {name: 0.0 for name in KERNELS}
+    phase_kernel_grid(device, max_err)
+
+    t0 = time.perf_counter()
+    g = kronecker(SCALE, 16, seed=SEED, device=device)
+    say(f"graph: Kronecker scale {SCALE} ef 16 seed {SEED}: "
+        f"V={g.num_vertices} E={g.num_edges} built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    times = phase_kernel_times(g, device, max_err)
+    launches = phase_main_path(g, device)
+
+    small = kronecker(16, 16, seed=SEED, device=device)
+    src = int(torch.argmax(small.degrees))
+    pr_ref = torch.from_numpy(pagerank_reference(small)) * small.num_vertices
+    for backend in ("pallas", "fused"):
+        spec = CommitSpec(backend=backend, stats=False)
+        r = bfs(small, src, spec=spec)
+        if not (r.dist.cpu().numpy() == bfs_reference(small, src)).all():
+            raise AssertionError(f"bfs({backend}) != bfs_reference")
+        pr, _ = pagerank(small, iters=20, spec=spec)
+        torch.testing.assert_close(
+            pr.cpu().double() * small.num_vertices, pr_ref, rtol=ADD_RTOL,
+            atol=ADD_ATOL, msg=lambda m: f"pagerank({backend}) x V: {m}")
+    say("phase 5: on scale 16 (pallas, fused), bfs equals bfs_reference "
+        "and pagerank x V agrees with pagerank_reference (float64)")
+
+    kernels = [dict(name=name, route="cuda", source=src_path,
+                    replaces=replaces, launches=launches[name],
+                    max_abs_err=max_err[name], ms=times[name]["ms"],
+                    plain_ms=times[name]["plain_ms"],
+                    bound_ms=times[name]["bound_ms"], bound_by="bytes",
+                    library_ms=times[name]["library_ms"])
+               for name, (src_path, replaces) in KERNELS.items()]
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

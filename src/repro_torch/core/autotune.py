@@ -1,0 +1,24 @@
+"""Per-round commit handle for the single-shard wave loops.
+
+Only the static-spec branch of ``repro.core.autotune.make_commit_step``
+is ported; the calibrating tuner (``backend="auto"``, the M ladder, the
+persistent cache) and the arguments that size its calibration are
+ROADMAP Queue 1 item 7.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.commit import CommitSpec, commit
+
+
+def make_commit_step(spec: CommitSpec | None, op: str, state):
+    """Returns ``(step, level0)`` where ``step(state, msgs, level) ->
+    (CommitResult, level')``.  For a static spec the level is a dummy the
+    loop carries through unchanged."""
+    level0 = torch.zeros((), dtype=torch.int32, device=state.device)
+
+    def step(state, msgs, level, _spec=spec):
+        return commit(state, msgs, op, _spec), level
+
+    return step, level0

@@ -1,0 +1,116 @@
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with
+``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so``
+under the checkout's root (a directory ``.gitignore`` lists), compiled for
+``sm_90a`` at first use.  The hash covers the sources, the shared headers
+and the flags, so an edit rebuilds and an unchanged tree reuses the
+library.  The C entries take pointers and the stream as ``c_void_p`` and
+return ``cudaGetLastError()``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# argtypes of each library's one C entry (see the .cu files)
+ENTRIES = {
+    "coarse_commit": ("aam_coarse_commit",
+                      [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I,
+                       _P]),
+    "fused_wave": ("aam_fused_route_commit",
+                   [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                    _I, _I, _P]),
+}
+
+SOURCES = tuple(ENTRIES)
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) \
+        / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every library of ``names`` not built yet, one ``nvcc`` per
+    source, all started together.  Returns ``{name: ptxas report}`` for
+    the ones compiled; raises with the compiler's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    try:
+        for name in names:
+            out = _target(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        reports, failed = {}, []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, out)
+            reports[name] = log
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build((name,))
+        lib = ctypes.CDLL(str(_target(name)))
+        entry, argtypes = ENTRIES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.aam_error_string.argtypes = [ctypes.c_int]
+        lib.aam_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry of ``lib`` reported a CUDA error."""
+    if err != 0:
+        msg = lib.aam_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

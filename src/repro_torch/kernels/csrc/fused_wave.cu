@@ -1,0 +1,57 @@
+// Fused route+commit for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel repro/kernels/fused_wave.py
+// (_fused_kernel, called through fused_route_commit_pallas): the coarse
+// commit read straight from post-exchange buffers.  Each message carries a
+// global target id (-1 = empty slot) and, for a batch axis, a lane id; the
+// kernel computes key = (tgt - base) * width + lane itself.  A message is
+// valid iff tgt >= 0, 0 <= tgt - base < nrows, and 0 <= lane < width when
+// there are lanes.  `base` is read from device memory, so one compiled
+// kernel serves every shard.
+//
+// What bounds it on an H100: bytes, as for the coarse commit: about
+// 8N + 8V for one pass (12N with lane ids), more for `first` (rank scratch)
+// and stats (shared-memory sort).  The key arithmetic is a few integer
+// operations per message, so fusing it costs nothing against the memory
+// traffic it saves the caller (no key array is written and read back).
+// A CTA whose messages are all invalid skips its conflict sort after one
+// __syncthreads_or -- the CUDA form of the Pallas kernel's tile skip.
+#include "commit_tiles.cuh"
+
+namespace aam_fused {
+
+struct FusedKeys {
+  const int* tgt;
+  const int* lane;  // null when width == 1
+  const int* base;  // null = 0
+  int nrows;
+  int width;
+  __device__ int key(long long i, bool& apply, bool& count) const {
+    const int t = tgt[i];
+    const int rel = t - (base ? *base : 0);
+    bool ok = t >= 0 && rel >= 0 && rel < nrows;
+    int l = 0;
+    if (lane) {
+      l = lane[i];
+      ok = ok && l >= 0 && l < width;
+    }
+    apply = count = ok;
+    return ok ? rel * width + l : 0;
+  }
+};
+
+}  // namespace aam_fused
+
+extern "C" int aam_fused_route_commit(void* out, const void* state,
+                                      const void* tgt, const void* val,
+                                      const void* lane, const void* base,
+                                      void* rank, void* conflicts, long long n,
+                                      int v, int nrows, int width, int op,
+                                      int dtype, int tile_m, int stats,
+                                      void* stream) {
+  aam_fused::FusedKeys keys{static_cast<const int*>(tgt),
+                            static_cast<const int*>(lane),
+                            static_cast<const int*>(base), nrows, width};
+  return aam::launch(keys, op, dtype, state, val, out, rank, conflicts, n, v,
+                     tile_m, stats, stream);
+}

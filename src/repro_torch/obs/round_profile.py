@@ -1,0 +1,77 @@
+"""Where a round's device time goes: ``torch.profiler`` over BFS and
+PageRank of the PyTorch port on one card.
+
+    PYTHONPATH=src python3 -m repro_torch.obs.round_profile
+
+Builds the Graph500 Kronecker graph of ``chip_smoke.py`` (scale 21, edge
+factor 16, seed 0), runs one warm-up and one profiled call of each
+algorithm on the ``pallas``, ``atomic`` and ``coarse`` backends, and
+prints the card, each run's wall time, the device's busy share (the sum
+of kernel times over the wall time) and the kernels that took most of
+the device time.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+SCALE = 21
+BACKENDS = ("pallas", "atomic", "coarse")
+TOP = 8                       # kernels listed per run
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("round_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.graphs.algorithms.pagerank import pagerank
+    from repro_torch.graphs.generators import kronecker
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0])
+    g = kronecker(SCALE, 16, seed=0, device="cuda")
+    src = int(torch.argmax(g.degrees))
+    for backend in BACKENDS:
+        spec = CommitSpec(backend=backend, stats=False)
+        profile_runs(
+            {"bfs": lambda: bfs(g, src, spec=spec).rounds,
+             "pagerank": lambda: (pagerank(g, iters=20, spec=spec), 20)[1]},
+            f"{backend}, scale {SCALE}")
+    return 0
+
+
+def profile_runs(runs, label):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rounds = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if e.device_time_total > 0 and e.device_type.name == "CUDA"]
+        if not events:
+            print(f"{name} ({label}): the trace holds no device time")
+            continue
+        device = sum(e.device_time_total for e in events) / 1e3
+        print(f"{name} ({label}): {rounds} "
+              f"rounds, wall {wall:.3f} ms ({wall / rounds:.3f} ms/round), "
+              f"device kernels {device:.3f} ms, busy share "
+              f"{device / wall:.3f}")
+        for e in sorted(events, key=lambda e: -e.device_time_total)[:TOP]:
+            print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
+                  f"{e.key[:90]}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

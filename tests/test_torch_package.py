@@ -1,0 +1,77 @@
+"""The port stands alone and keeps to its device rule.
+
+* Every module of ``repro_torch``, and ``chip_smoke``, imports with JAX
+  made unimportable, and leaves no module of the reference package
+  loaded.
+* Entry points that build tensors default to ``device="cuda"`` and raise
+  when no card is present, rather than running on the CPU unasked.
+"""
+import os
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_without_jax_or_reference():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        leaked = sorted(m for m in sys.modules
+                        if m == "repro" or m.startswith("repro."))
+        assert not leaked, leaked
+        assert "jax" not in [m.split(".")[0] for m in sys.modules
+                             if sys.modules[m] is not None]
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 14    # every module was found
+
+
+def _entry_points():
+    from repro_torch import convert
+    from repro_torch.graphs import csr, generators
+    edges = np.array([0, 1]), np.array([1, 2])
+    return [
+        lambda: generators.kronecker(4, 4),
+        lambda: generators.erdos_renyi(16),
+        lambda: generators.grid2d(3),
+        lambda: generators.preferential(12, 2),
+        lambda: generators.bipartite_web(16, 4),
+        lambda: csr.from_edges(*edges, 3),
+        lambda: convert.to_graph([0, 1, 2, 2], *edges, [1.0, 1.0], 3),
+        lambda: convert.to_messages([0], [1]),
+        lambda: convert.to_state([0, 0]),
+    ]
+
+
+@pytest.mark.parametrize("i", range(9))
+def test_entry_points_default_to_cuda(i):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[i]()
+
+
+def test_entry_points_run_on_cpu_when_asked():
+    from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.graphs.generators import grid2d
+    g = grid2d(4, device="cpu")
+    r = bfs(g, 0)
+    assert r.dist.device.type == "cpu"
+    assert r.dist.tolist() == [i + j for i in range(4) for j in range(4)]
