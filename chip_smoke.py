@@ -6,24 +6,40 @@
 Phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of both CUDA kernels (one ``nvcc`` per source, in parallel);
-3. each kernel against its plain version on the card, over op x dtype x
-   stats x target skew x tile_m at V = 2**21, N = 2**26 (state
+2. the build of the three CUDA kernels (one ``nvcc`` per source, in
+   parallel);
+3. each commit kernel against its plain version on the card, over op x
+   dtype x stats x target skew x tile_m at V = 2**21, N = 2**26 (state
    bit-identical, float ``add`` within rtol 2e-4 / atol 1e-6, conflicts
-   equal), then each kernel checked against and timed beside its plain
-   version on the main path's own message batch, and one
-   ``scatter_reduce_`` call timed on it;
-4. the main path: ``bfs``, ``sssp`` and ``pagerank`` (20 iterations) on a
-   Graph500 Kronecker graph (scale 21, edge factor 16, seed 0) on each of
-   the four commit backends, which must agree (ranks scaled by V within
-   rtol 2e-4 / atol 1e-6, rank mass within 1e-5 of 1), with the kernels'
-   launch counters zeroed before and read after;
+   equal), then each checked against and timed beside its plain version
+   on the main path's own message batch, and one ``scatter_reduce_``
+   call timed on it; the bucket-count kernel equal to its plain version
+   over num_buckets x owner skew x masked share at N = 2**26 and at
+   N = 0 and 1, then timed beside its plain version and
+   ``torch.bincount`` on the engine's own batch (the owner ids of a
+   scale-21 PageRank sub-round at world size 1) and on the ids an
+   8-shard layout would count;
+4. the single-shard path: ``bfs``, ``sssp`` and ``pagerank`` (20
+   iterations) on a Graph500 Kronecker graph (scale 21, edge factor 16,
+   seed 0) on each of the four commit backends, which must agree (ranks
+   scaled by V within rtol 2e-4 / atol 1e-6, rank mass within 1e-5 of
+   1);
 5. ``bfs`` and ``pagerank`` on a scale-16 graph against the
-   ``bfs_reference`` and float64 ``pagerank_reference`` oracles.
+   ``bfs_reference`` and float64 ``pagerank_reference`` oracles;
+6. the wave engine at world size 1 on the phase-4 graph, on ``pallas``
+   and ``fused``: ``distributed_bfs``, ``distributed_sssp`` and
+   ``distributed_pagerank`` (20 iterations) at capacity 2**24 (so a
+   PageRank iteration takes 4 sub-rounds), and
+   ``distributed_multi_source_bfs`` with 4 lanes; distances equal phase
+   4's bit for bit, each lane equals ``bfs`` from its source, ranks
+   agree with phase 4's, every message is delivered.
 
-Then one JSON line of per-kernel numbers and, last, the line
-``{"ok": true, "device": {...}}``.  Any failed check raises, and the
-script exits non-zero without that line.  It needs one card and the
+Phases 4 and 6 are the main path: each zeroes the kernels' launch
+counters before it and reads them after, and fails if a kernel of its
+path was not launched (phase 6: the bucket count, and the fused kernel
+with 4 lanes).  Then one JSON line of per-kernel numbers and, last, the
+line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
+the script exits non-zero without that line.  It needs one card and the
 checkout's ``src/``; it imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -34,6 +50,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
@@ -48,7 +65,12 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                       "src/repro/kernels/coarse_commit.py:52"),
     "fused_route_commit": ("src/repro_torch/kernels/csrc/fused_wave.cu",
                            "src/repro/kernels/fused_wave.py:55"),
+    "bucket_count": ("src/repro_torch/kernels/csrc/coalesce.cu",
+                     "src/repro/kernels/coalesce.py:18"),
 }
+COUNT_BUCKETS = (1, 7, 8, 128, 1000, 65536)   # phase 3's bucket-count grid
+ENGINE_CAPACITY = 2 ** 24          # phase 6's coalescing factor C
+LANES = 4                          # phase 6's lane-batched BFS
 
 
 def say(*parts):
@@ -70,6 +92,17 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def wall_s(fn) -> float:
+    """Host seconds of ``fn`` from a synchronised start to a synchronised
+    end."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def kron_targets(n: int, log2_v: int, gen, device):
@@ -233,8 +266,9 @@ def phase_kernel_times(g, device, max_err):
 
 
 def phase_main_path(g, device):
-    """Phase 4: BFS, SSSP and PageRank on every backend; the kernels'
-    launch counts of this phase are returned."""
+    """Phase 4: BFS, SSSP and PageRank on every backend.  Returns the
+    kernels' launch counts of this phase and the ``pallas`` backend's
+    (bfs result, sssp dist, pagerank ranks)."""
     import torch
     from repro_torch.core.commit import BACKENDS, CommitSpec
     from repro_torch.graphs.algorithms.bfs import bfs
@@ -300,6 +334,216 @@ def phase_main_path(g, device):
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was not launched on the main path")
+    rb, sd, _, pr = results["pallas"]
+    return launches, (rb, sd, pr)
+
+
+def count_ids(n, nb, skew, masked, gen, device):
+    """Owner ids for the bucket-count grid: ``skew`` uniform, Kronecker
+    in-degree (a Kronecker vertex id // ceil(2**21 / nb), as the router
+    computes owners) or one bucket; a ``masked`` share of the ids
+    replaced, half by -1 and half by ids >= nb."""
+    import torch
+    if skew == "uniform":
+        ids = torch.randint(0, nb, (n,), generator=gen, device=device)
+    elif skew == "kronecker":
+        block = -(-(1 << GRID_LOG2_V) // nb)
+        ids = kron_targets(n, GRID_LOG2_V, gen, device) // block
+    else:
+        ids = torch.full((n,), nb // 2, device=device)
+    drop = torch.rand(n, generator=gen, device=device) < masked
+    high = nb + torch.randint(0, 1000, (n,), generator=gen, device=device)
+    half = torch.rand(n, generator=gen, device=device) < 0.5
+    ids = torch.where(drop, torch.where(half, -1, high), ids)
+    return ids.to(torch.int32).contiguous()
+
+
+def phase_count_grid(device, max_err):
+    """Phase 3: the bucket-count kernel equal to its plain version."""
+    import torch
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.kernels.ref import bucket_count_ref
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    t0, cases = time.perf_counter(), 0
+
+    def check(label, owner, nb):
+        got = bucket_count_kernel(owner, nb)
+        exp = bucket_count_ref(owner, nb)
+        torch.cuda.synchronize()
+        err = float((got.long() - exp.long()).abs().max())
+        max_err["bucket_count"] = max(max_err["bucket_count"], err)
+        if not torch.equal(got, exp):
+            raise AssertionError(f"bucket_count/{label}: counts differ "
+                                 f"(max |err| {err})")
+    for nb in COUNT_BUCKETS:
+        for skew in ("uniform", "kronecker", "one-bucket"):
+            for masked in (0.0, 0.5, 1.0):
+                owner = count_ids(1 << GRID_LOG2_N, nb, skew, masked, gen,
+                                  device)
+                check(f"nb={nb}/{skew}/masked={masked}", owner, nb)
+                cases += 1
+        for n in (0, 1):
+            check(f"nb={nb}/N={n}", count_ids(n, nb, "uniform", 0.0, gen,
+                                               device), nb)
+            cases += 1
+    say(f"phase 3: {cases} bucket-count cases equal their plain version "
+        f"at N=2^{GRID_LOG2_N} (and N=0, 1), num_buckets in "
+        f"{COUNT_BUCKETS} ({time.perf_counter() - t0:.1f} s); max |err| "
+        f"bucket_count={max_err['bucket_count']:.3g}")
+
+
+def synchronises(fn) -> bool:
+    """Whether ``fn`` makes the host wait for the card
+    (``torch.cuda.set_sync_debug_mode``)."""
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return any("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_count_times(g, device):
+    """Phase 3: the bucket-count kernel timed beside its plain version and
+    ``torch.bincount`` on the owner ids the engine counts.  Returns the
+    numbers of the engine's own batch."""
+    import torch
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.kernels.ref import bucket_count_ref
+    v, n = g.num_vertices, g.num_edges
+    out = None
+    for shards, label in ((1, "the engine's own batch: the owner ids of a "
+                              "PageRank sub-round at world size 1"),
+                          (8, "not a run of the engine: the owner ids an "
+                              "8-shard layout of the same graph would "
+                              "count (dst // block)")):
+        block = -(-v // shards)
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        owner_c = torch.where(valid, g.dst // block, shards).to(torch.int32)
+        masked = torch.where(valid, owner_c, -1).to(torch.int32)
+        got = bucket_count_kernel(masked, shards)
+        if not torch.equal(got, bucket_count_ref(masked, shards)):
+            raise AssertionError(f"bucket_count differs on {label}")
+        ms = cuda_ms(lambda: bucket_count_kernel(masked, shards), REPS)
+        plain = cuda_ms(lambda: bucket_count_ref(masked, shards), REPS)
+        library = cuda_ms(lambda: torch.bincount(
+            owner_c, minlength=shards + 1)[:shards], REPS)
+        bound = (4 * n + 4 * shards) / HBM_BYTES_PER_S * 1e3
+        say(f"phase 3: bucket_count on {label}: N={n}, {shards} bucket(s), "
+            f"median of {REPS}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+            f"torch.bincount {library:.4f} ms  bound (4N + 4B) bytes / "
+            f"3.35 TB/s = {bound:.4f} ms")
+        if out is None:
+            out = dict(ms=ms, plain_ms=plain, library_ms=library,
+                       bound_ms=bound)
+            sync_lib = synchronises(lambda: torch.bincount(
+                owner_c, minlength=shards + 1))
+            sync_kernel = synchronises(
+                lambda: bucket_count_kernel(masked, shards))
+            say(f"phase 3: the host waits for the card in torch.bincount: "
+                f"{sync_lib}; in the bucket-count kernel: {sync_kernel}")
+    return out
+
+
+def phase_engine(g, device, single):
+    """Phase 6: the wave engine at world size 1 on ``pallas`` and
+    ``fused``, held to phase 4's single-shard results.  Returns the
+    kernels' launch counts of this phase."""
+    import numpy as np
+    import torch
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.bfs import (
+        bfs, distributed_bfs, distributed_multi_source_bfs)
+    from repro_torch.graphs.algorithms.pagerank import distributed_pagerank
+    from repro_torch.graphs.algorithms.sssp import distributed_sssp
+    from repro_torch.graphs.generators import random_weights
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.kernels.coarse_commit import coarse_commit_kernel
+    from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+    from repro_torch.launch.mesh import make_mesh
+    kernels = {"coarse_commit": coarse_commit_kernel,
+               "fused_route_commit": fused_route_commit_kernel,
+               "bucket_count": bucket_count_kernel}
+    bfs0, sssp0, ranks0 = single
+    v = g.num_vertices
+    src = int(torch.argmax(g.degrees))
+    rng = np.random.default_rng(SEED)
+    others = rng.choice(np.flatnonzero(g.degrees.cpu().numpy() > 0),
+                        LANES - 1, replace=False)
+    sources = [src] + [int(x) for x in others]
+    gw = random_weights(g, seed=0)
+    lane_ref = [bfs0.dist] + [
+        bfs(g, s, spec=CommitSpec(backend="pallas", stats=False)).dist
+        for s in sources[1:]]
+    mesh = make_mesh(device=device)
+    launches = {name: 0 for name in kernels}
+    lane_fused = 0
+    for backend in ("pallas", "fused"):
+        kw = dict(capacity=ENGINE_CAPACITY, telemetry=True,
+                  spec=CommitSpec(backend=backend, stats=False))
+        runs = {
+            "bfs": lambda: distributed_bfs(mesh, g, src, **kw),
+            "sssp": lambda: distributed_sssp(mesh, gw, src, **kw),
+            "pagerank": lambda: distributed_pagerank(mesh, g, iters=20,
+                                                     **kw),
+            f"multi_bfs L={LANES}": lambda: distributed_multi_source_bfs(
+                mesh, g, sources, **kw)}
+        # the set-up every call repeats before its first round: the edge
+        # partition on the host, the edge slice to the card, the state
+        setup = wall_s(lambda: distributed_pagerank(mesh, g, iters=0, **kw))
+        say(f"phase 6: {backend:6s} set-up of a call (a 0-iteration "
+            f"distributed_pagerank): {setup * 1e3:.1f} ms; ms/round below "
+            f"= (call - set-up) / rounds")
+        for k in kernels.values():
+            k.launches = 0
+        for name, run in runs.items():
+            before = fused_route_commit_kernel.launches
+            torch.cuda.reset_peak_memory_stats()
+            result = []
+            wall = wall_s(lambda: result.extend(run()))
+            *out, res = result
+            if name.startswith("multi_bfs"):
+                lane_fused += fused_route_commit_kernel.launches - before
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            say(f"phase 6: {backend:6s} {name:14s} {res.rounds} rounds, "
+                f"{(wall - setup) / res.rounds * 1e3:.2f} ms/round "
+                f"(call {wall * 1e3:.1f} ms), "
+                f"{res.subrounds / res.rounds:.2f} sub-rounds/round, "
+                f"peak {peak:.2f} GiB, delivered_all={res.delivered_all}")
+            if not res.delivered_all:
+                raise AssertionError(f"phase 6 {backend} {name}: messages "
+                                     f"left undelivered")
+            got = out[0]
+            if name == "bfs" and not torch.equal(got, bfs0.dist):
+                raise AssertionError(f"distributed_bfs ({backend}) != bfs")
+            if name == "sssp" and not torch.equal(got, sssp0):
+                raise AssertionError(f"distributed_sssp ({backend}) != sssp")
+            if name == "pagerank":
+                torch.testing.assert_close(
+                    got * v, ranks0 * v, rtol=ADD_RTOL, atol=ADD_ATOL,
+                    msg=lambda m: f"distributed_pagerank ({backend}): {m}")
+            if name.startswith("multi_bfs"):
+                for lane, exp in enumerate(lane_ref):
+                    if not torch.equal(got[lane], exp):
+                        raise AssertionError(
+                            f"distributed_multi_source_bfs ({backend}) lane "
+                            f"{lane} != bfs from {sources[lane]}")
+        for k_name, k in kernels.items():
+            launches[k_name] += k.launches
+    say(f"phase 6: the engine equals phase 4 on pallas and fused (sources "
+        f"{sources}); launches {launches}, of which fused_route_commit "
+        f"with width {LANES}: {lane_fused}")
+    for name in ("bucket_count", "coarse_commit", "fused_route_commit"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the engine "
+                                 f"path")
+    if lane_fused < 1:
+        raise AssertionError(f"fused_route_commit was not launched with "
+                             f"width {LANES}")
     return launches
 
 
@@ -335,6 +579,7 @@ def main() -> int:
 
     max_err = {name: 0.0 for name in KERNELS}
     phase_kernel_grid(device, max_err)
+    phase_count_grid(device, max_err)
 
     t0 = time.perf_counter()
     g = kronecker(SCALE, 16, seed=SEED, device=device)
@@ -342,7 +587,8 @@ def main() -> int:
         f"V={g.num_vertices} E={g.num_edges} built on the host in "
         f"{time.perf_counter() - t0:.1f} s")
     times = phase_kernel_times(g, device, max_err)
-    launches = phase_main_path(g, device)
+    times["bucket_count"] = phase_count_times(g, device)
+    launches, single = phase_main_path(g, device)
 
     small = kronecker(16, 16, seed=SEED, device=device)
     src = int(torch.argmax(small.degrees))
@@ -358,6 +604,10 @@ def main() -> int:
             atol=ADD_ATOL, msg=lambda m: f"pagerank({backend}) x V: {m}")
     say("phase 5: on scale 16 (pallas, fused), bfs equals bfs_reference "
         "and pagerank x V agrees with pagerank_reference (float64)")
+
+    engine_launches = phase_engine(g, device, single)
+    launches = {name: launches.get(name, 0) + engine_launches[name]
+                for name in KERNELS}
 
     kernels = [dict(name=name, route="cuda", source=src_path,
                     replaces=replaces, launches=launches[name],

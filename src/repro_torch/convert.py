@@ -1,4 +1,5 @@
-"""Carry graphs, messages and commit state across from host arrays.
+"""Carry graphs, messages, commit state and bucket plans across from host
+arrays.
 
 The reference package's arrays, taken to numpy (``np.asarray(g.src)``,
 ...), become the port's objects on a chosen device, so both packages can
@@ -10,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.coalescing import BucketPlan
 from repro_torch.core.messages import Messages
 from repro_torch.graphs.csr import Graph, graph_on
 
@@ -48,3 +50,23 @@ def to_messages(target, payload, valid=None, *, device="cuda") -> Messages:
 def to_state(state, *, device="cuda") -> torch.Tensor:
     """A commit state tensor (same dtype) from a host array."""
     return torch.as_tensor(np.array(state), device=resolve_device(device))
+
+
+def to_bucket_plan(owner, position, counts, kept, dropped, *,
+                   device="cuda") -> BucketPlan:
+    """A :class:`BucketPlan` from its five fields as host arrays: owner,
+    position [n] int32, counts [num_buckets] int32, kept [n] bool,
+    dropped a 0-d int32."""
+    device = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+    plan = BucketPlan(owner=put(owner, np.int32),
+                      position=put(position, np.int32),
+                      counts=put(counts, np.int32), kept=put(kept, bool),
+                      dropped=put(dropped, np.int32))
+    if not plan.owner.shape == plan.position.shape == plan.kept.shape:
+        raise ValueError(f"owner {tuple(plan.owner.shape)}, position "
+                         f"{tuple(plan.position.shape)}, kept "
+                         f"{tuple(plan.kept.shape)} disagree")
+    return plan

@@ -39,6 +39,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.coalescing import QueryLanes
 from repro_torch.core.messages import Messages
 from repro_torch.kernels.coarse_commit import coarse_commit_kernel
 from repro_torch.kernels.fused_wave import fused_route_commit_kernel
@@ -144,6 +145,43 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
     if backend == "fused":
         return _fused_commit(state, msgs, op, spec)
     return _pallas_commit(state, msgs, op, spec)
+
+
+def commit_batched(state: torch.Tensor, msgs: Messages, op: str,
+                   spec: CommitSpec | None = None, *,
+                   axis) -> CommitResult:
+    """Commit an axis-fused batch (keys from
+    :func:`repro_torch.core.messages.batch_messages`) against the axis's
+    flat [axis.flat_size] state: one commit resolves every item's
+    conflicts, equal to the looped per-item commits."""
+    if state.shape[0] != axis.flat_size:
+        raise ValueError(f"state leading dim {state.shape[0]} != "
+                         f"axis flat size {axis.flat_size}")
+    return commit(state, msgs, op, spec)
+
+
+def commit_lanes(state: torch.Tensor, msgs: Messages, op: str,
+                 spec: CommitSpec | None = None) -> CommitResult:
+    """:func:`commit_batched` for the query-lane axis against [L, V]
+    lane-major state (keys from ``lane_messages``)."""
+    lanes, v = state.shape
+    res = commit_batched(state.reshape(lanes * v), msgs, op, spec,
+                         axis=QueryLanes(lanes, v))
+    return dataclasses.replace(res, state=res.state.reshape(lanes, v))
+
+
+def commit_product(state: torch.Tensor, msgs: Messages, op: str,
+                   spec: CommitSpec | None = None, *,
+                   axis) -> CommitResult:
+    """:func:`commit_batched` for the lanes×graphs product axis against
+    [L, Vtot] lane-major union state (keys from ``product_messages``)."""
+    lanes, vtot = state.shape
+    if (lanes, vtot) != (axis.lanes, axis.num_vertices):
+        raise ValueError(f"state shape {tuple(state.shape)} != product "
+                         f"axis ({axis.lanes}, {axis.num_vertices})")
+    res = commit_batched(state.reshape(lanes * vtot), msgs, op, spec,
+                         axis=axis)
+    return dataclasses.replace(res, state=res.state.reshape(lanes, vtot))
 
 
 _PALLAS_DTYPES = (torch.int32, torch.float32)

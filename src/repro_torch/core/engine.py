@@ -1,0 +1,558 @@
+"""Distributed AAM engine — atomic active messages over ``torch.distributed``.
+
+Vertices are 1-D partitioned into contiguous owner ranges (paper §3.1);
+each rank holds its vertex state slice and the edges whose source it
+owns.  One *wave* = route all pending messages to their owners and
+commit:
+
+  1. bucket messages per destination shard (coalescing, capacity C);
+  2. one all-to-all exchanges the coalesced [P, C] buffers;
+  3. owners run the commit (any backend of :mod:`repro_torch.core.commit`);
+  4. (FR) success flags return to spawners by the reverse all-to-all.
+
+Messages beyond C stay pending and go in the next sub-round.
+:func:`run_distributed` executes an :class:`AlgorithmSpec` (an ``init``
+hook producing global state and a ``round_fn`` hook emitting one round
+of messages through a :class:`WaveRuntime`) and owns partitioning, the
+round loop, and the conflict/sub-round telemetry.
+
+This module mirrors :mod:`repro.core.engine`, with these differences:
+
+* One process per shard.  The :class:`repro_torch.launch.mesh.Mesh`
+  names the process group, this rank and its device; ``_all_to_all`` is
+  ``all_to_all_single`` and ``_psum`` is ``all_reduce`` on that group
+  (NCCL on cards, gloo on the CPU).  At world size 1 both return their
+  input and no collective runs.
+* Each ``lax.while_loop`` is a host loop: a sub-round loop reads one
+  psum'd pending count per sub-round, a round loop one ``active`` flag
+  per round.  ``DistributedResult.rounds``/``subrounds`` are ints and
+  ``delivered_all`` a bool.
+* ``run_distributed`` runs single-shot.  These raise
+  ``NotImplementedError``: ``snapshot_rounds``/``fault_injector``
+  (degraded mesh, ROADMAP Queue 1 item 6), a graph set (item 4),
+  ``REPRO_TRACE`` wave taps (item 9); ``CommitSpec`` itself refuses
+  ``backend="auto"`` (item 7) and ``trace`` (item 9).  The waverace
+  lint capture is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core import commit as C
+from repro_torch.core.coalescing import (BucketPlan, fuse_keys,
+                                         gather_from_buckets,
+                                         plan_buckets_sorted,
+                                         require_key_space,
+                                         scatter_to_buckets)
+from repro_torch.core.messages import make_messages
+from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.graphs.csr import Graph, partition_tensors
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    mesh: Any               # repro_torch.launch.mesh.Mesh; its size is P
+    block: int              # vertices per shard
+    capacity: int           # coalescing factor C (messages per dest/round)
+    axis: str = "data"
+    m: int | None = None    # transaction size (None = whole batch)
+    op: str = "min"
+    spec: C.CommitSpec | None = None   # commit backend; None = coarse(m)
+    batch: Any = None       # default batch axis of waves (None = unbatched)
+
+    @property
+    def num_shards(self) -> int:
+        return self.mesh.size
+
+    @property
+    def commit_spec(self) -> C.CommitSpec:
+        if self.spec is not None:
+            return self.spec
+        return C.CommitSpec(backend="coarse", m=self.m)
+
+    def _commit(self, state, msgs):
+        return C.commit(state, msgs, self.op, self.commit_spec)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on the mesh axis
+# ---------------------------------------------------------------------------
+
+
+def _one_shard(mesh) -> bool:
+    return mesh.size == 1
+
+
+def _all_to_all(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Tiled all-to-all over dim 0: row block p goes to rank p, and row
+    block p of the result came from rank p (``jax.lax.all_to_all(x,
+    axis, 0, 0, tiled=True)``).  At world size 1 it returns ``x``."""
+    if _one_shard(mesh):
+        return x
+    import torch.distributed as dist
+    send = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+    out = torch.empty_like(send)
+    dist.all_to_all_single(out, send, group=mesh.group)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum over the mesh axis; at world size 1 it returns ``x``."""
+    if _one_shard(mesh):
+        return x
+    import torch.distributed as dist
+    out = x.clone()
+    dist.all_reduce(out, group=mesh.group)
+    return out
+
+
+def _axis_index(mesh) -> int:
+    return mesh.rank
+
+
+def _all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``x`` stacked along dim 0 in rank order."""
+    if _one_shard(mesh):
+        return x
+    import torch.distributed as dist
+    send = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
+    parts = [torch.empty_like(send) for _ in range(mesh.size)]
+    dist.all_gather(parts, send, group=mesh.group)
+    out = torch.cat(parts)
+    return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+# ---------------------------------------------------------------------------
+# Waves
+# ---------------------------------------------------------------------------
+
+
+def route_wave(ecfg: EngineConfig, state_l, target, payload, pending,
+               major=None, batch=None):
+    """One coalescing sub-round (overflow beyond C is not requeued here;
+    :func:`wave_until_delivered` does that).
+
+    state_l: tree of [block] local owner slices; payload: matching tree of
+    [n] fields; target: [n] global vertex ids; pending: [n] bool.
+    ``batch``/``major``: a batch axis and [n] int32 item ids.  With
+    ``batch.wave_width`` W > 1 (query lanes) the ids ride the exchange,
+    state leaves are vertex-major [block * W] slices, and owners commit on
+    composite keys ``local_v * W + major``.  With ``backend="fused"`` the
+    exchanged buffers go straight into one launch of the fused
+    route+commit kernel.  Returns (state_l, kept, success tree,
+    conflicts)."""
+    P, Cp, mesh = ecfg.num_shards, ecfg.capacity, ecfg.mesh
+    batch = batch if batch is not None else ecfg.batch
+    width = batch.wave_width if batch is not None else 1
+    if width > 1:
+        require_key_space(ecfg.block * width,
+                          where="route_wave(block * wave_width)")
+    owner = target // ecfg.block
+    plan, _ = plan_buckets_sorted(owner, pending, P, Cp)
+    kept = plan.kept
+    # sentinel -1 marks empty slots through the exchange
+    buf_t = scatter_to_buckets(plan, torch.where(kept, target, -1), P, Cp,
+                               fill=-1)
+    buf_p = scatter_to_buckets(plan, payload, P, Cp, fill=0)
+    rt_flat = _all_to_all(buf_t, mesh).reshape(-1)
+    rp = tree_map(lambda b: _all_to_all(b, mesh), buf_p)
+    shard = _axis_index(mesh)
+    rl_flat = None
+    if width > 1:
+        if major is None:
+            raise ValueError("batch axis with wave_width > 1 needs "
+                             "per-message `major` item ids")
+        buf_l = scatter_to_buckets(plan, major.to(torch.int32), P, Cp,
+                                   fill=0)
+        rl_flat = _all_to_all(buf_l, mesh).reshape(-1)
+    valid = rt_flat >= 0
+    st_leaves, tdef = tree_flatten(state_l)
+    pl_leaves, pdef = tree_flatten(rp)
+    if pdef != tdef:
+        raise ValueError("state and payload trees differ in structure")
+    spec = ecfg.commit_spec
+    fused = [spec.backend == "fused" and C.fused_site_supported(st, p)
+             for st, p in zip(st_leaves, pl_leaves)]
+    local_idx = None
+    if not all(fused):
+        local_idx = (rt_flat - shard * ecfg.block).clamp(0, ecfg.block - 1)
+        if width > 1:
+            local_idx = fuse_keys(local_idx, rl_flat.clamp(0, width - 1),
+                                  width)
+    new_st, succs = [], []
+    conflicts = None
+    for i, (st, pl) in enumerate(zip(st_leaves, pl_leaves)):
+        if fused[i]:
+            res = C.fused_commit_site(st, rt_flat, pl.reshape(-1), ecfg.op,
+                                      spec, lane=rl_flat,
+                                      base=shard * ecfg.block, width=width)
+        else:
+            res = ecfg._commit(st, make_messages(local_idx, pl.reshape(-1),
+                                                 valid))
+        new_st.append(res.state)
+        if i == 0:
+            # slot collisions depend on (target, valid) only, which every
+            # payload field shares: count them once per routed message
+            conflicts = res.conflicts
+        succs.append(res.success)
+    # FR return path: one reverse exchange carries every field's flags
+    back = _all_to_all(torch.stack(succs, -1).reshape(P, Cp, len(succs)),
+                       mesh)
+    succ = tree_unflatten(tdef, [gather_from_buckets(back[..., i], plan, Cp,
+                                                     fill=False)
+                                 for i in range(len(succs))])
+    return tree_unflatten(tdef, new_st), kept, succ, conflicts
+
+
+def _pending_count(pending, mesh) -> int:
+    """The psum'd pending count: the sub-round loop's one host read."""
+    return int(_psum(pending.sum(dtype=torch.int32), mesh))
+
+
+def wave_until_delivered(ecfg: EngineConfig, state_l, target, payload,
+                         valid, max_subrounds: int = 64, major=None,
+                         batch=None):
+    """Deliver all messages: sub-rounds until nothing is pending.
+
+    Returns (state_l, success tree, conflicts, subrounds,
+    delivered_all).  ``delivered_all`` is False when ``max_subrounds`` was
+    exhausted with messages still pending; callers must surface it."""
+    n = target.shape[0]
+    st_leaves, tdef = tree_flatten(state_l)
+    success = [torch.zeros((n,), dtype=torch.bool, device=target.device)
+               for _ in st_leaves]
+    pending = valid
+    conflicts = torch.zeros((), dtype=torch.int32, device=target.device)
+    subrounds = 0
+    left = _pending_count(pending, ecfg.mesh)
+    while left > 0 and subrounds < max_subrounds:
+        state_l, kept, succ, cf = route_wave(ecfg, state_l, target, payload,
+                                             pending, major, batch)
+        success = [torch.where(kept, sn, so)
+                   for sn, so in zip(tree_flatten(succ)[0], success)]
+        pending = pending & ~kept
+        conflicts = conflicts + cf
+        subrounds += 1
+        left = _pending_count(pending, ecfg.mesh)
+    # commits run at the owners: the conflict total is the sum over shards
+    conflicts = _psum(conflicts, ecfg.mesh)
+    return (state_l, tree_unflatten(tdef, success), conflicts, subrounds,
+            left == 0)
+
+
+def route_messages(ecfg: EngineConfig, target, payload, valid):
+    """Route one sub-round of messages to owners without committing, for
+    custom owner-side handlers.  ``payload`` may be a tree of [n] fields,
+    or ``None`` for pure read requests.
+
+    Returns (local_idx [P*C], payload tree of [P*C] or None, rvalid
+    [P*C], plan, kept)."""
+    P, Cp, mesh = ecfg.num_shards, ecfg.capacity, ecfg.mesh
+    owner = target // ecfg.block
+    plan, _ = plan_buckets_sorted(owner, valid, P, Cp)
+    kept = plan.kept
+    buf_t = scatter_to_buckets(plan, torch.where(kept, target, -1), P, Cp,
+                               fill=-1)
+    rt_flat = _all_to_all(buf_t, mesh).reshape(-1)
+    rp_flat = None
+    if payload is not None:
+        buf_p = scatter_to_buckets(plan, payload, P, Cp, fill=0)
+        rp_flat = tree_map(lambda b: _all_to_all(b, mesh).reshape(-1), buf_p)
+    local_idx = rt_flat - _axis_index(mesh) * ecfg.block
+    return local_idx, rp_flat, rt_flat >= 0, plan, kept
+
+
+def return_to_spawners(ecfg: EngineConfig, reply, plan: BucketPlan,
+                       fill=0):
+    """Reverse all-to-all of per-slot replies (FR return path); ``reply``
+    may be a tree of [P*C] fields; unkept messages read ``fill``."""
+    P, Cp = ecfg.num_shards, ecfg.capacity
+    back = tree_map(lambda r: _all_to_all(r.reshape(P, Cp), ecfg.mesh),
+                    reply)
+    return gather_from_buckets(back, plan, Cp, fill=fill)
+
+
+def gather_until_answered(ecfg: EngineConfig, arr_l, idx, valid, fill=0,
+                          max_subrounds: int = 64):
+    """Remote gather: read the distributed array ``arr_l`` (tree of
+    [block] owner slices) at global indices ``idx`` [n], requeueing
+    coalescing overflow until every valid request is answered.
+
+    Returns (values tree of [n], ``fill`` where ~valid; subrounds;
+    delivered_all)."""
+    n = idx.shape[0]
+    leaves, tdef = tree_flatten(arr_l)
+    out = [torch.full((n,), fill, dtype=a.dtype, device=a.device)
+           for a in leaves]
+    pending = valid
+    subrounds = 0
+    left = _pending_count(pending, ecfg.mesh)
+    while left > 0 and subrounds < max_subrounds:
+        local_idx, _, rvalid, plan, kept = route_messages(ecfg, idx, None,
+                                                          pending)
+        lidx = local_idx.clamp(0, ecfg.block - 1).long()
+        reply = [torch.where(rvalid, a[lidx], torch.as_tensor(
+            fill, dtype=a.dtype, device=a.device)) for a in leaves]
+        back = return_to_spawners(ecfg, tree_unflatten(tdef, reply), plan,
+                                  fill=fill)
+        out = [torch.where(kept, b, o)
+               for b, o in zip(tree_flatten(back)[0], out)]
+        pending = pending & ~kept
+        subrounds += 1
+        left = _pending_count(pending, ecfg.mesh)
+    return tree_unflatten(tdef, out), subrounds, left == 0
+
+
+# ---------------------------------------------------------------------------
+# Coalescing-capacity auto-sizing (paper §5.6)
+# ---------------------------------------------------------------------------
+
+# ``capacity="auto"``: C starts from the average per-shard inbound load,
+# and a process-level feedback cache grows it for the next run whenever a
+# run's waves persistently overflowed (sub-rounds per round above
+# OVERFLOW_RATIO).  The constants are the reference's.
+CAPACITY_MIN = 64
+CAPACITY_MAX = 1 << 15
+OVERFLOW_RATIO = 2.0
+_CAPACITY_CACHE: dict = {}
+
+
+def auto_capacity(g, num_shards: int) -> int:
+    """Current C for (graph shape, shard count): the cached feedback value
+    when a previous run reported overflow, else a power of two about
+    twice the average per-shard inbound load, clamped."""
+    key = (g.num_vertices, g.num_edges, num_shards)
+    hit = _CAPACITY_CACHE.get(key)
+    if hit is not None:
+        return hit
+    per_shard = max(1, (2 * g.num_edges) // max(num_shards, 1))
+    return max(CAPACITY_MIN, min(1 << (per_shard - 1).bit_length(),
+                                 CAPACITY_MAX))
+
+
+def _capacity_feedback(g, num_shards: int, capacity: int,
+                       subrounds: int, rounds: int) -> None:
+    """Grow the cached C when waves persistently overflowed this run."""
+    if subrounds > OVERFLOW_RATIO * max(rounds, 1) and capacity < CAPACITY_MAX:
+        _CAPACITY_CACHE[(g.num_vertices, g.num_edges, num_shards)] = \
+            min(capacity * 2, CAPACITY_MAX)
+
+
+# ---------------------------------------------------------------------------
+# The distributed-algorithm harness
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """Static shapes of one distributed run (1-D partition, paper §3.1)."""
+    num_shards: int
+    block: int          # vertices per shard (padded)
+    emax: int           # edges per shard (padded)
+    num_vertices: int
+    num_edges: int
+
+    @property
+    def vpad(self) -> int:
+        return self.num_shards * self.block
+
+
+@dataclasses.dataclass
+class EdgeSlice:
+    """This rank's edge slice (sources owned locally, padded to emax)."""
+    src: torch.Tensor      # int32 [emax] global source ids
+    dst: torch.Tensor      # int32 [emax] global destination ids
+    weight: torch.Tensor   # float32 [emax]
+    valid: torch.Tensor    # bool [emax]
+    eid: torch.Tensor      # int32 [emax] original edge ids
+    my_src: torch.Tensor   # int64 [emax] local row of src (clipped to block);
+    #                        int64 because it is only ever an index
+
+
+class WaveRuntime:
+    """Per-round handle the harness passes to ``round_fn``: the wave
+    primitives bound to the run's :class:`EngineConfig`, accumulating
+    conflicts, sub-rounds, routed messages and the delivery flag over
+    every wave and gather of the round."""
+
+    def __init__(self, ecfg: EngineConfig, layout: ShardLayout,
+                 max_subrounds: int):
+        self.ecfg = ecfg
+        self.layout = layout
+        self.max_subrounds = max_subrounds
+        device = ecfg.mesh.device
+        self.conflicts = torch.zeros((), dtype=torch.int32, device=device)
+        self.subrounds = 0
+        self.messages = torch.zeros((), dtype=torch.int32, device=device)
+        self.delivered_all = True
+
+    @property
+    def shard(self) -> int:
+        return _axis_index(self.ecfg.mesh)
+
+    @property
+    def gid(self) -> torch.Tensor:
+        """Global vertex ids of the local block."""
+        return self.shard * self.ecfg.block + torch.arange(
+            self.ecfg.block, dtype=torch.int32, device=self.ecfg.mesh.device)
+
+    def psum(self, x):
+        return _psum(x, self.ecfg.mesh)
+
+    def any(self, mask) -> torch.Tensor:
+        """Global any() over a per-shard bool array."""
+        return self.psum(mask.sum(dtype=torch.int32)) > 0
+
+    def wave(self, state_l, target, payload, valid, *, op: str,
+             major=None, batch=None):
+        """Deliver and commit messages ``(target, payload)`` with ``op``;
+        returns (state_l, success tree).  With a ``batch`` axis of
+        ``wave_width`` W > 1 the state leaves are vertex-major
+        [block * W] slices and ``major`` holds the item ids."""
+        ecfg = dataclasses.replace(self.ecfg, op=op)
+        state_l, success, cf, sr, dall = wave_until_delivered(
+            ecfg, state_l, target, payload, valid, self.max_subrounds,
+            major, batch)
+        self.conflicts = self.conflicts + cf
+        self.subrounds += sr
+        self.messages = self.messages + self.psum(
+            valid.sum(dtype=torch.int32))
+        self.delivered_all = self.delivered_all and dall
+        return state_l, success
+
+    def gather(self, arr_l, idx, valid=None, *, fill=0):
+        """Remote gather of the distributed array ``arr_l`` at global
+        indices ``idx`` (``fill`` where ~valid)."""
+        if valid is None:
+            valid = torch.ones(idx.shape, dtype=torch.bool,
+                               device=idx.device)
+        out, sr, dall = gather_until_answered(
+            self.ecfg, arr_l, idx, valid, fill=fill,
+            max_subrounds=self.max_subrounds)
+        self.subrounds += sr
+        self.delivered_all = self.delivered_all and dall
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class AlgorithmSpec:
+    """One irregular algorithm expressed as AAM rounds.
+
+    init:       ``(g, layout) -> (state, scalars)``; ``state`` is a tree of
+                global tensors on the mesh's device whose leading dim is
+                divisible by ``num_shards``.
+    round_fn:   ``(rt, edges, state, scalars, it) -> (state, scalars,
+                active)``; ``state`` holds this rank's slices, ``active``
+                is the globally consistent flag (False ends the loop).
+    max_rounds: ``(g, layout) -> int`` round cap.
+    """
+    name: str
+    message_type: str
+    init: Callable[..., Any]
+    round_fn: Callable[..., Any]
+    max_rounds: Callable[..., int]
+
+
+@dataclasses.dataclass
+class DistributedResult:
+    """Harness output: final state and the telemetry the paper tabulates.
+
+    ``delivered_all`` False means some wave hit ``max_subrounds`` with
+    messages still pending: the state is not the fixed point."""
+    state: Any              # tree of global (padded) tensors
+    scalars: Any
+    rounds: int
+    conflicts: torch.Tensor  # int32, summed over every wave and shard
+    subrounds: int
+    delivered_all: bool
+    m_final: int            # -1: static spec, no tuner
+    capacity: int           # the coalescing factor C the run used
+    degraded: bool = False
+
+
+def telemetry_return(base, res: DistributedResult, telemetry: bool):
+    """``telemetry=False``: ``base``; ``telemetry=True``: ``res`` appended
+    (a tuple ``base`` gains it at the end, anything else becomes
+    ``(base, res)``)."""
+    if not telemetry:
+        return base
+    if isinstance(base, tuple):
+        return base + (res,)
+    return (base, res)
+
+
+def _edge_slice(arrays, rank: int, block: int, device) -> EdgeSlice:
+    src, dst, w, val, eid = (torch.as_tensor(a[rank]).to(device)
+                             for a in arrays)
+    return EdgeSlice(src=src, dst=dst, weight=w, valid=val, eid=eid,
+                     my_src=(src.long() - rank * block).clamp(0, block - 1))
+
+
+def run_distributed(alg: AlgorithmSpec, mesh, g, *,
+                    capacity: int | str = 4096,
+                    m: int | None = None, axis: str = "data",
+                    spec: C.CommitSpec | None = None,
+                    max_subrounds: int = 64,
+                    edges=None, batch=None,
+                    snapshot_rounds: int | None = None,
+                    fault_injector=None) -> DistributedResult:
+    """Execute ``alg`` over the ``mesh[axis]`` shards: the one harness
+    behind every ``distributed_*`` algorithm.
+
+    Every rank partitions the same graph on the graph's device
+    (:func:`repro_torch.graphs.csr.partition_tensors`), keeps its own row
+    of edges and its slice of the state ``alg.init`` builds, and runs the
+    round loop; the result's ``state`` is the global padded tensors,
+    gathered from every rank.  ``capacity``/``m`` are the paper's C and
+    M; ``capacity="auto"`` sizes C with :func:`auto_capacity`.  ``edges``
+    takes a precomputed ``partition_edges(g, mesh.shape[axis])`` (numpy
+    arrays or tensors); ``batch`` is the run's default batch axis."""
+    if snapshot_rounds is not None or fault_injector is not None:
+        raise NotImplementedError(
+            "degraded-mesh mode (snapshot_rounds, fault_injector) is not "
+            "ported yet (ROADMAP Queue 1 item 6)")
+    if not isinstance(g, Graph):
+        raise NotImplementedError(
+            "run_distributed takes one Graph; graph sets come with the "
+            "batched_over_graphs_* entry points (ROADMAP Queue 1 item 4)")
+    if os.environ.get("REPRO_TRACE", "").strip() not in ("", "0"):
+        raise NotImplementedError(
+            "REPRO_TRACE wave taps come with observability (ROADMAP "
+            "Queue 1 item 9)")
+    P = mesh.shape[axis]
+    auto_cap = capacity == "auto"
+    if auto_cap:
+        capacity = auto_capacity(g, P)
+    arrays, part = edges if edges is not None else partition_tensors(g, P)
+    layout = ShardLayout(P, part.block, arrays[0].shape[1], g.num_vertices,
+                         g.num_edges)
+    ecfg = EngineConfig(mesh, part.block, capacity, axis=axis, m=m,
+                        spec=spec, batch=batch)
+    state, scalars = alg.init(g, layout)
+    rank = _axis_index(mesh)
+    state = tree_map(lambda a: a.reshape((P, -1) + tuple(a.shape[1:]))[rank],
+                     state)
+    edge_slice = _edge_slice(arrays, rank, part.block, mesh.device)
+    max_rounds = int(alg.max_rounds(g, layout))
+    conflicts = torch.zeros((), dtype=torch.int32, device=mesh.device)
+    subrounds, delivered_all, rounds, active = 0, True, 0, True
+    while active and rounds < max_rounds:
+        rt = WaveRuntime(ecfg, layout, max_subrounds)
+        state, scalars, active = alg.round_fn(rt, edge_slice, state,
+                                              scalars, rounds)
+        conflicts = conflicts + rt.conflicts
+        subrounds += rt.subrounds
+        delivered_all = delivered_all and rt.delivered_all
+        rounds += 1
+        active = bool(active)
+    state = tree_map(lambda a: _all_gather_rows(a, mesh), state)
+    if auto_cap:
+        _capacity_feedback(g, P, capacity, subrounds, rounds)
+    return DistributedResult(state=state, scalars=scalars, rounds=rounds,
+                             conflicts=conflicts, subrounds=subrounds,
+                             delivered_all=delivered_all, m_final=-1,
+                             capacity=int(capacity))

@@ -1,5 +1,7 @@
 """SSSP (Bellman-Ford label-correcting) — FF&MF messages, weighted ``min``
-commit.  Same AAM structure as BFS with ``dist[src] + w`` payloads."""
+commit.  Same AAM structure as BFS with ``dist[src] + w`` payloads;
+:func:`multi_source_sssp` runs L roots as lanes of one wave and
+:func:`distributed_sssp` runs on the wave engine."""
 from __future__ import annotations
 
 import heapq
@@ -9,7 +11,9 @@ import torch
 
 from repro_torch.core import autotune as AT
 from repro_torch.core import commit as C
-from repro_torch.core.messages import make_messages
+from repro_torch.core.engine import (AlgorithmSpec, run_distributed,
+                                     telemetry_return)
+from repro_torch.core.messages import lane_messages, make_messages
 from repro_torch.graphs.csr import Graph
 
 INF = 3.0e38
@@ -36,6 +40,72 @@ def sssp(g: Graph, source: int, *, commit: str = "coarse",
         dist = res.state
         rounds += 1
     return dist, rounds
+
+
+def multi_source_sssp(g: Graph, sources, *, commit: str = "coarse",
+                      m: int | None = None, sort: bool = True,
+                      spec: C.CommitSpec | None = None):
+    """L independent SSSP roots as lanes of one fused wave.  Returns
+    (dist [L, V], rounds); row l equals ``sssp(g, sources[l])[0]``."""
+    if spec is None:
+        spec = C.CommitSpec(backend=commit, m=m, sort=sort, stats=False)
+    v = g.num_vertices
+    sources = torch.as_tensor(sources, device=g.device).long()
+    lanes = sources.shape[0]
+    lidx = torch.arange(lanes, device=g.device)
+    dist = torch.full((lanes, v), INF, dtype=torch.float32, device=g.device)
+    dist[lidx, sources] = 0.0
+    frontier = torch.zeros((lanes, v), dtype=torch.bool, device=g.device)
+    frontier[lidx, sources] = True
+    dst_l = g.dst.expand(lanes, g.num_edges)
+    step, lvl = AT.make_commit_step(spec, "min", dist.reshape(-1))
+    rounds = 0
+    while rounds < v and bool(frontier.any()):
+        active = frontier[:, g.src]
+        msgs = lane_messages(dst_l, dist[:, g.src] + g.weights[None, :],
+                             active, v)
+        res, lvl = step(dist.reshape(-1), msgs, lvl)
+        dist2 = res.state.reshape(lanes, v)
+        frontier = dist2 != dist
+        dist = dist2
+        rounds += 1
+    return dist, rounds
+
+
+def distributed_sssp(mesh, g: Graph, source, *, capacity: int | str = 4096,
+                     m: int | None = None, axis: str = "data",
+                     spec: C.CommitSpec | None = None,
+                     max_subrounds: int = 64, telemetry: bool = False):
+    """Bellman-Ford SSSP on the wave engine: FF&MF waves whose f32
+    relaxation payloads ride next to the int32 targets in the same
+    buckets.  Returns (dist [V], rounds); ``telemetry=True`` appends the
+    DistributedResult."""
+    dev = mesh.device
+
+    def init(g, layout):
+        src = torch.as_tensor(source, device=dev).long()
+        dist0 = torch.full((layout.vpad,), INF, dtype=torch.float32,
+                           device=dev)
+        dist0[src] = 0.0
+        frontier0 = torch.zeros((layout.vpad,), dtype=torch.bool,
+                                device=dev)
+        frontier0[src] = True
+        return {"dist": dist0, "frontier": frontier0}, {}
+
+    def round_fn(rt, e, st, sc, it):
+        dist = st["dist"]
+        active = st["frontier"][e.my_src] & e.valid
+        dist2, _ = rt.wave(dist, e.dst, dist[e.my_src] + e.weight, active,
+                           op="min")
+        changed = dist2 != dist
+        return {"dist": dist2, "frontier": changed}, sc, rt.any(changed)
+
+    alg = AlgorithmSpec("sssp", "FF&MF", init, round_fn,
+                        lambda g, layout: layout.vpad)
+    res = run_distributed(alg, mesh, g, capacity=capacity, m=m, axis=axis,
+                          spec=spec, max_subrounds=max_subrounds)
+    dist = res.state["dist"][:g.num_vertices]
+    return telemetry_return((dist, res.rounds), res, telemetry)
 
 
 def sssp_reference(g: Graph, source: int):

@@ -2,8 +2,9 @@
 
 Algorithms here are *edge-centric*: one vectorized pass over the edge
 arrays generates the round's atomic active messages (src active ->
-message to dst).  ``GraphSet`` and ``Partition`` of the reference come
-with the batch axes and the wave engine.
+message to dst).  :func:`partition_edges` splits the edges over the
+shards of the wave engine.  ``GraphSet`` of the reference comes with the
+graph-batch entry points.
 """
 from __future__ import annotations
 
@@ -79,3 +80,59 @@ def graph_on(indptr, src, dst, weights, num_vertices: int, device) -> Graph:
     return Graph(indptr=put(indptr, np.int32), src=src,
                  dst=put(dst, np.int32), weights=put(weights, np.float32),
                  num_vertices=int(num_vertices), num_edges=int(src.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# 1-D partitioning (paper §3.1: V split into contiguous owner ranges)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    num_shards: int
+    block: int          # vertices per shard (padded)
+
+    def owner(self, v):
+        return v // self.block
+
+    def local(self, v):
+        return v % self.block
+
+
+def partition_tensors(g: Graph, num_shards: int):
+    """:func:`partition_edges` as tensors on ``g``'s device: (src, dst, w,
+    valid, eid), each [num_shards, E_max], + Partition.  A shard's slots
+    hold its edges in their original order, as the reference's boolean
+    selection leaves them."""
+    v, e, dev = g.num_vertices, g.num_edges, g.device
+    block = -(-v // num_shards)
+    owner = (g.src // block).long()
+    counts = torch.bincount(owner, minlength=num_shards)
+    emax = max(int(counts.max()), 1)
+    order = torch.argsort(owner, stable=True)
+    row = owner[order]
+    slot = torch.arange(e, device=dev) - (torch.cumsum(counts, 0)
+                                          - counts)[row]
+
+    def lay(a, fill, dtype):
+        out = torch.full((num_shards, emax), fill, dtype=dtype, device=dev)
+        out[row, slot] = a[order].to(dtype)
+        return out
+    return (lay(g.src, 0, torch.int32), lay(g.dst, 0, torch.int32),
+            lay(g.weights, 0, torch.float32),
+            lay(torch.ones(e, dtype=torch.bool, device=dev), False,
+                torch.bool),
+            lay(torch.arange(e, device=dev), e, torch.int32)), \
+        Partition(num_shards, block)
+
+
+def partition_edges(g: Graph, num_shards: int):
+    """Split edges by owner of the source (each shard expands its own
+    vertices), padded to equal length.  Returns numpy arrays shaped
+    [num_shards, E_max]: (src, dst, w, valid, eid) + Partition.
+
+    ``eid`` carries each slot's original edge index (``num_edges`` in
+    padding slots).  The arrays equal the reference's
+    (``repro.graphs.csr.partition_edges``) for the same graph."""
+    arrays, part = partition_tensors(g, num_shards)
+    return tuple(a.cpu().numpy() for a in arrays), part

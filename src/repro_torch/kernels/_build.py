@@ -32,6 +32,7 @@ ENTRIES = {
     "fused_wave": ("aam_fused_route_commit",
                    [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                     _I, _I, _P]),
+    "coalesce": ("aam_bucket_count", [_P, _P, _L, _I, _P]),
 }
 
 SOURCES = tuple(ENTRIES)

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the two commit kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each gives the same committed state and the same per-tile conflict count
-as its CUDA kernel (``csrc/coarse_commit.cu``, ``csrc/fused_wave.cu``) and
-as the Pallas kernel of the reference.  The kernel wrappers run these for
+The two commit kernels' versions give the same committed state and the
+same per-tile conflict count as their CUDA kernels
+(``csrc/coarse_commit.cu``, ``csrc/fused_wave.cu``) and as the Pallas
+kernels of the reference; :func:`bucket_count_ref` gives the same counts
+as ``csrc/coalesce.cu``.  The kernel wrappers run these for
 tensors on the CPU; the tests and ``chip_smoke.py`` hold the kernels
 against them.  ``scatter_reduce`` into a buffer with a sentinel row at
 index V stands in for JAX's ``FILL_OR_DROP`` scatter mode.
@@ -100,3 +102,16 @@ def fused_route_commit_ref(state, tgt, val, *, lane=None, base=None,
     if not stats:
         return new
     return new, _tile_conflicts(key, ok, tile_m, v)
+
+
+def bucket_count_ref(owner, num_buckets: int):
+    """Plain version of the bucket-count kernel: messages per bucket.
+
+    owner: [N] int32; ids ``< 0`` or ``>= num_buckets`` (``-1`` = masked)
+    are not counted.  Returns int32 [num_buckets]."""
+    valid = (owner >= 0) & (owner < num_buckets)
+    safe = torch.where(valid, owner, num_buckets).long()
+    counts = torch.zeros(num_buckets + 1, dtype=torch.int32,
+                         device=owner.device)
+    counts.scatter_add_(0, safe, torch.ones_like(safe, dtype=torch.int32))
+    return counts[:num_buckets]

@@ -5,10 +5,16 @@ PageRank of the PyTorch port on one card.
 
 Builds the Graph500 Kronecker graph of ``chip_smoke.py`` (scale 21, edge
 factor 16, seed 0), runs one warm-up and one profiled call of each
-algorithm on the ``pallas``, ``atomic`` and ``coarse`` backends, and
-prints the card, each run's wall time, the device's busy share (the sum
-of kernel times over the wall time) and the kernels that took most of
-the device time.  Needs a CUDA device.
+single-shard algorithm on the ``pallas``, ``atomic`` and ``coarse``
+backends, and of one wave of the wave engine on ``pallas`` and
+``fused``: ``wave_until_delivered`` on a PageRank iteration's messages
+(every edge, f32 ``add``) at world size 1 and capacity 2**24, as in
+``chip_smoke.py`` phase 6 but without the call's set-up (the edge
+partition).  Prints the card, each run's wall time, the device's busy
+share (the sum of kernel times over the wall time), the kernels that
+took most of the device time and, for the wave, the device time by
+step (argsort, count, scatter/gather, commit, copies and casts, the
+rest).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -18,7 +24,16 @@ import time
 
 SCALE = 21
 BACKENDS = ("pallas", "atomic", "coarse")
-TOP = 8                       # kernels listed per run
+ENGINE_BACKENDS = ("pallas", "fused")
+ENGINE_CAPACITY = 2 ** 24
+TOP = 12                      # kernels listed per run
+# device time of a wave by step: (step, substrings of its kernels' names)
+STEPS = (("argsort", ("RadixSort", "radix_sort", "Radix")),
+         ("count", ("count_kernel",)),
+         ("commit", ("aam",)),
+         ("scatter/gather", ("index_elementwise", "index_put", "scatter",
+                             "gather")),
+         ("copies/casts", ("Memcpy", "Memset", "copy")))
 
 
 def main() -> int:
@@ -29,7 +44,9 @@ def main() -> int:
     from repro_torch.core.commit import CommitSpec
     from repro_torch.graphs.algorithms.bfs import bfs
     from repro_torch.graphs.algorithms.pagerank import pagerank
+    from repro_torch.core.engine import EngineConfig, wave_until_delivered
     from repro_torch.graphs.generators import kronecker
+    from repro_torch.launch.mesh import make_mesh
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -43,10 +60,24 @@ def main() -> int:
             {"bfs": lambda: bfs(g, src, spec=spec).rounds,
              "pagerank": lambda: (pagerank(g, iters=20, spec=spec), 20)[1]},
             f"{backend}, scale {SCALE}")
+    v = g.num_vertices
+    contrib = torch.rand(g.num_edges, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    valid = torch.ones(g.num_edges, dtype=torch.bool, device="cuda")
+    for backend in ENGINE_BACKENDS:
+        ecfg = EngineConfig(make_mesh(device="cuda"), v, ENGINE_CAPACITY,
+                            op="add",
+                            spec=CommitSpec(backend=backend, stats=False))
+        profile_runs(
+            {"wave_until_delivered": lambda: wave_until_delivered(
+                ecfg, torch.zeros(v, device="cuda"), g.dst, contrib,
+                valid)[3]},
+            f"engine, one PageRank wave, world size 1, C = 2^24, {backend}, "
+            f"scale {SCALE}; the count is sub-rounds", steps=True)
     return 0
 
 
-def profile_runs(runs, label):
+def profile_runs(runs, label, steps=False):
     import torch
     from torch.profiler import ProfilerActivity, profile
     for name, run in runs.items():
@@ -71,6 +102,15 @@ def profile_runs(runs, label):
         for e in sorted(events, key=lambda e: -e.device_time_total)[:TOP]:
             print(f"  {e.device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
                   f"{e.key[:90]}")
+        if steps:
+            by_step = {}
+            for e in events:
+                step = next((name for name, keys in STEPS
+                             if any(k in e.key for k in keys)), "the rest")
+                by_step[step] = by_step.get(step, 0) + e.device_time_total
+            print("  by step: " + ", ".join(
+                f"{name} {t / 1e3:.3f} ms" for name, t in sorted(
+                    by_step.items(), key=lambda kv: -kv[1])))
 
 
 if __name__ == "__main__":

@@ -1,21 +1,31 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the wave
+engine on the card against the engine on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: bit-identical state and conflict count; float ``add`` within
-rtol 2e-4 / atol 1e-6 (atomics add in an order that changes run to run).
+Tolerance: bit-identical state, conflict count and bucket counts; float
+``add`` within rtol 2e-4 / atol 1e-6 (atomics add in an order that
+changes run to run).
 """
 import pytest
 import torch
 
+from repro_torch.core.coalescing import plan_buckets_sorted
 from repro_torch.core.commit import BACKENDS, CommitSpec, commit
 from repro_torch.core.messages import make_messages
+from repro_torch.graphs.algorithms.bfs import (distributed_bfs,
+                                                distributed_multi_source_bfs)
+from repro_torch.graphs.algorithms.pagerank import distributed_pagerank
+from repro_torch.graphs.algorithms.sssp import distributed_sssp
+from repro_torch.graphs.generators import kronecker, random_weights
 from repro_torch.kernels import ref
+from repro_torch.kernels.coalesce import bucket_count_kernel
 from repro_torch.kernels.coarse_commit import coarse_commit_kernel
 from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+from repro_torch.launch.mesh import make_mesh
 
 OPS_TYPES = [(op, dt) for op in ("min", "max", "add", "or", "first")
              for dt in (torch.int32, torch.float32)]
@@ -114,3 +124,68 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         coarse_commit_kernel(
             st, torch.zeros(8, dtype=torch.int32, device=cuda)[::2], t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [0, 1, 5, 1000, 100_003])
+@pytest.mark.parametrize("nb", [1, 7, 32, 1000, 49152, 49153, 65536])
+def test_bucket_count_matches_plain(cuda, nb, n, offset):
+    """Shared-memory histogram up to 49152 buckets, global atomics above;
+    ``offset`` starts the ids off the 16-byte boundary.  Ids from -2 to
+    nb + 2 (masked outside [0, nb)); a third of them in one bucket."""
+    gen = torch.Generator().manual_seed(nb * 7 + n + offset)
+    ids = torch.randint(-2, nb + 3, (n + offset,), generator=gen)
+    ids[: (n + offset) // 3] = 0
+    owner = ids.to(torch.int32).to(cuda)[offset:]
+    before = bucket_count_kernel.launches
+    got = bucket_count_kernel(owner, nb)
+    torch.cuda.synchronize()
+    assert bucket_count_kernel.launches == before + (n > 0)
+    assert torch.equal(got, ref.bucket_count_ref(owner, nb))
+    assert int(got.sum()) == int(((owner >= 0) & (owner < nb)).sum())
+
+
+@pytest.mark.cuda
+def test_plan_buckets_sorted_launches_the_kernel(cuda):
+    gen = torch.Generator().manual_seed(3)
+    owner = torch.randint(0, 8, (50_000,), generator=gen).to(cuda)
+    valid = (torch.rand(50_000, generator=gen) < 0.7).to(cuda)
+    before = bucket_count_kernel.launches
+    plan, order = plan_buckets_sorted(owner, valid, 8, 4096)
+    assert bucket_count_kernel.launches == before + 1
+    plan_j, order_j = plan_buckets_sorted(owner, valid, 8, 4096,
+                                          count_backend="jnp")
+    for f in ("owner", "position", "counts", "kept", "dropped"):
+        assert torch.equal(getattr(plan, f), getattr(plan_j, f)), f
+    assert torch.equal(order, order_j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_engine_on_card_matches_cpu(cuda, backend):
+    """World size 1 at Kronecker scale 12: the same answers and telemetry
+    on the card as on the CPU."""
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = kronecker(12, 16, seed=0, device=dev)
+        gw = random_weights(g, seed=0)
+        src = int(torch.argmax(g.degrees))
+        mesh = make_mesh(device=dev)
+        kw = dict(capacity=4096, spec=CommitSpec(backend=backend),
+                  max_subrounds=256, telemetry=True)
+        d, _, rb = distributed_bfs(mesh, g, src, **kw)
+        s, _, rs = distributed_sssp(mesh, gw, src, **kw)
+        p, rp = distributed_pagerank(mesh, g, iters=5, **kw)
+        m, _, rm = distributed_multi_source_bfs(mesh, g, [src, 1, 2, 3], **kw)
+        out[dev] = ([d.cpu(), s.cpu(), p.cpu() * g.num_vertices, m.cpu()],
+                    [(r.rounds, r.subrounds, int(r.conflicts),
+                      r.delivered_all) for r in (rb, rs, rp, rm)])
+    (cpu, cpu_tel), (card, card_tel) = out["cpu"], out["cuda"]
+    assert card_tel == cpu_tel
+    assert all(t[3] for t in card_tel)
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if i == 2:
+            torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-6)
+        else:
+            assert torch.equal(a, b)

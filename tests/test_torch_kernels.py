@@ -1,12 +1,13 @@
-"""The port's commit kernels against the reference's Pallas kernels.
+"""The port's kernels against the reference's Pallas kernels.
 
 On the CPU the wrappers of ``repro_torch.kernels`` run their plain
 versions; the reference kernels run in interpret mode, as in
 ``tests/test_kernels.py``.  Inputs come from one numpy seed and go to
-both.  Tolerance: bit-identical state and conflict count, float ``add``
-within rtol 2e-4 / atol 1e-6 (the reference's reassociation bound,
-``repro/analysis/sanitize.py``).  The CUDA kernels are held against the
-same plain versions on the card by ``tests/test_torch_cuda.py``.
+both.  Tolerance: bit-identical state, conflict count and bucket counts,
+float ``add`` within rtol 2e-4 / atol 1e-6 (the reference's
+reassociation bound, ``repro/analysis/sanitize.py``).  The CUDA kernels
+are held against the same plain versions on the card by
+``tests/test_torch_cuda.py``.
 """
 import functools
 
@@ -15,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.coarse_commit import coarse_commit_pallas
 from repro.kernels.fused_wave import fused_route_commit_pallas
+from repro_torch.kernels.coalesce import bucket_count_kernel
 from repro_torch.kernels.coarse_commit import coarse_commit_kernel
 from repro_torch.kernels.fused_wave import fused_route_commit_kernel
 
@@ -179,3 +183,27 @@ def test_empty_batch_returns_state():
     assert torch.equal(out, st) and int(conf) == 0
     out, conf = fused_route_commit_kernel(st, e, e, stats=True)
     assert torch.equal(out, st) and int(conf) == 0
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, 5000])
+@pytest.mark.parametrize("nb", [1, 7, 128, 300])
+def test_bucket_count_matches_pallas(nb, n):
+    """Ids run from -2 to nb + 2: ``-1``, other negatives and ids
+    ``>= nb`` are all masked.  The reference's Pallas kernel fails at
+    N = 0 (its first tile is longer than the input), so that case is
+    held to the reference's ``bucket_count_ref`` alone."""
+    rng = np.random.default_rng([nb, n])
+    owner = rng.integers(-2, nb + 3, n).astype(np.int32)
+    owner[: n // 3] = rng.integers(0, min(nb, 3), n // 3)    # hot buckets
+    got = bucket_count_kernel(_t(owner), nb)
+    assert got.dtype == torch.int32 and got.shape == (nb,)
+    exp = np.asarray(jref.bucket_count_ref(jnp.asarray(owner), nb))
+    np.testing.assert_array_equal(got.numpy(), exp)
+    if n:
+        exp_pallas = jops.bucket_count(jnp.asarray(owner), num_buckets=nb)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(exp_pallas))
+
+
+def test_bucket_count_rejects_bad_arguments():
+    with pytest.raises(ValueError, match="num_buckets"):
+        bucket_count_kernel(torch.zeros(4, dtype=torch.int32), 0)

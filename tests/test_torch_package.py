@@ -34,18 +34,23 @@ def test_port_imports_without_jax_or_reference():
         assert not leaked, leaked
         assert "jax" not in [m.split(".")[0] for m in sys.modules
                              if sys.modules[m] is not None]
+        for name in ("repro_torch.core.coalescing", "repro_torch.core.engine",
+                     "repro_torch.core.tree", "repro_torch.kernels.coalesce",
+                     "repro_torch.launch.mesh"):
+            assert name in names, name
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 14    # every module was found
+    assert int(out.stdout.split()[-1]) >= 20    # every module was found
 
 
 def _entry_points():
     from repro_torch import convert
     from repro_torch.graphs import csr, generators
+    from repro_torch.launch import mesh
     edges = np.array([0, 1]), np.array([1, 2])
     return [
         lambda: generators.kronecker(4, 4),
@@ -57,10 +62,12 @@ def _entry_points():
         lambda: convert.to_graph([0, 1, 2, 2], *edges, [1.0, 1.0], 3),
         lambda: convert.to_messages([0], [1]),
         lambda: convert.to_state([0, 0]),
+        lambda: convert.to_bucket_plan([0], [0], [1], [True], 0),
+        lambda: mesh.make_mesh(),
     ]
 
 
-@pytest.mark.parametrize("i", range(9))
+@pytest.mark.parametrize("i", range(11))
 def test_entry_points_default_to_cuda(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
