@@ -6,7 +6,7 @@
 Phases, one or more lines each:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
-2. the build of the three CUDA kernels (one ``nvcc`` per source, in
+2. the build of the four CUDA kernels (one ``nvcc`` per source, in
    parallel);
 3. each commit kernel against its plain version on the card, over op x
    dtype x stats x target skew x tile_m at V = 2**21, N = 2**26 (state
@@ -32,13 +32,24 @@ Phases, one or more lines each:
    PageRank iteration takes 4 sub-rounds), and
    ``distributed_multi_source_bfs`` with 4 lanes; distances equal phase
    4's bit for bit, each lane equals ``bfs`` from its source, ranks
-   agree with phase 4's, every message is delivered.
+   agree with phase 4's, every message is delivered;
+7. Mamba2-780m at its published width (48 layers, d_model 1536, 48 SSD
+   heads of 64, state 128), bf16 compute over f32 weights drawn on the
+   card from a seed: ``generate()`` on 8 x 2048 prompt tokens + 32 greedy
+   tokens (the SSD kernel once per layer), the prefill and decode times;
+   the SSD kernel against its plain version over chunk length x (N, P) x
+   f32/bf16 with cumsum(a) falling to -250 over a chunk, then timed
+   beside it on layer 0's own inputs; on-card oracles in f32: the kernel
+   path's logits against the einsum path's, S - k prefill + k decode
+   steps against an S prefill, and ``ssm_apply`` against the sequential
+   ``ssm_ref``.
 
-Phases 4 and 6 are the main path: each zeroes the kernels' launch
+Phases 4, 6 and 7 are the main path: each zeroes the kernels' launch
 counters before it and reads them after, and fails if a kernel of its
 path was not launched (phase 6: the bucket count, and the fused kernel
-with 4 lanes).  Then one JSON line of per-kernel numbers and, last, the
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
+with 4 lanes; phase 7: the SSD kernel once per layer).  Then one JSON
+line of per-kernel numbers and, last, the line
+``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that line.  It needs one card and the
 checkout's ``src/``; it imports nothing of the JAX package.
 """
@@ -67,10 +78,18 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                            "src/repro/kernels/fused_wave.py:55"),
     "bucket_count": ("src/repro_torch/kernels/csrc/coalesce.cu",
                      "src/repro/kernels/coalesce.py:18"),
+    "ssd_chunk": ("src/repro_torch/kernels/csrc/ssd_chunk.cu",
+                  "src/repro/kernels/ssd_chunk.py:19"),
 }
 COUNT_BUCKETS = (1, 7, 8, 128, 1000, 65536)   # phase 3's bucket-count grid
 ENGINE_CAPACITY = 2 ** 24          # phase 6's coalescing factor C
 LANES = 4                          # phase 6's lane-batched BFS
+F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
+MAMBA = "mamba2-780m"              # phase 7's model, at its published width
+PROMPT, NEW_TOKENS = (8, 2048), 32  # phase 7's batch x prompt, greedy tokens
+SSD_LS = (1, 7, 64, 100, 125, 128)  # phase 7's chunk lengths
+SSD_NPS = ((16, 16), (128, 64))    # (state N, head dim P): smoke, published
+ORACLE = (2, 1024)                 # phase 7's f32 oracles: batch x tokens
 
 
 def say(*parts):
@@ -94,15 +113,20 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def wall_s(fn) -> float:
-    """Host seconds of ``fn`` from a synchronised start to a synchronised
-    end."""
+def timed(fn):
+    """``fn()`` and its host seconds from a synchronised start to a
+    synchronised end."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    return out, time.perf_counter() - t0
+
+
+def wall_s(fn) -> float:
+    """Host seconds of ``fn``, as :func:`timed` takes them."""
+    return timed(fn)[1]
 
 
 def kron_targets(n: int, log2_v: int, gen, device):
@@ -257,7 +281,7 @@ def phase_kernel_times(g, device, max_err):
                 f"  bound {bound_ms:.4f} ms")
             if (op, dtype) == ("add", torch.float32):
                 out[name] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                                 bound_ms=bound_ms)
+                                 bound_ms=bound_ms, bound_by="bytes")
                 stats_ms = cuda_ms(lambda: kernel(state, idx, val, op=op,
                                                   stats=True), REPS)
                 say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel with "
@@ -439,7 +463,7 @@ def phase_count_times(g, device):
             f"3.35 TB/s = {bound:.4f} ms")
         if out is None:
             out = dict(ms=ms, plain_ms=plain, library_ms=library,
-                       bound_ms=bound)
+                       bound_ms=bound, bound_by="bytes")
             sync_lib = synchronises(lambda: torch.bincount(
                 owner_c, minlength=shards + 1))
             sync_kernel = synchronises(
@@ -547,6 +571,222 @@ def phase_engine(g, device, single):
     return launches
 
 
+def ssd_bound(g, L, n, p, elem):
+    """The least time of the SSD chunk on the card, in ms, and what sets
+    it: each input read and the output written once (C, B [G, L, N], x, y
+    [G, L, P] of ``elem`` bytes, a [G, L] f32) over the HBM rate, or the
+    causal products (G L(L+1)/2 (N + P) FMAs, 2 FLOPs each) over the f32
+    rate."""
+    byte_ms = g * ((2 * L * n + 2 * L * p) * elem + 4 * L) \
+        / HBM_BYTES_PER_S * 1e3
+    flop_ms = g * L * (L + 1) / 2 * (n + p) * 2 / F32_FLOP_PER_S * 1e3
+    return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms
+                                   else "operations"), byte_ms, flop_ms
+
+
+def ssd_check(got, exp, label):
+    """Raise unless the kernel's output agrees with the plain version's:
+    f32 atol 1e-4 with rtol 1e-3 (the two sum the products in other
+    orders); bf16 atol 1e-2, rtol 1e-2 (both sum the same bf16 inputs in
+    f32, so they part by at most one rounding of the output to bf16, 2^-7
+    of it).  Returns the max abs difference."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: NaN or inf")
+    f32 = got.dtype == torch.float32
+    torch.testing.assert_close(got.float(), exp.float(),
+                               atol=1e-4 if f32 else 1e-2,
+                               rtol=1e-3 if f32 else 1e-2,
+                               msg=lambda m: f"{label}: {m}")
+    return float((got.float() - exp.float()).abs().max())
+
+
+def phase_ssd_grid(g, device):
+    """Phase 7: the SSD kernel against its plain version over the chunk
+    lengths the mixer reaches, both widths, both dtypes.  Returns the max
+    abs difference by dtype."""
+    import torch
+    from repro_torch.kernels.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    t0, low = time.perf_counter(), 0.0
+    for L in SSD_LS:
+        for n, p in SSD_NPS:
+            a = -torch.rand(g, L, generator=gen, device=device) * (500.0 / L)
+            low = min(low, float(torch.cumsum(a, 1).min()))
+            base = [torch.randn(g, L, k, generator=gen, device=device)
+                    for k in (n, n, p)]
+            for dtype in err:
+                args = [t.to(dtype) for t in base] + [a]
+                got = ssd_chunk_kernel(*args)
+                exp = ssd_chunk_ref(*args)
+                torch.cuda.synchronize()
+                err[dtype] = max(err[dtype], ssd_check(
+                    got, exp, f"ssd_chunk/L={L}/N={n}/P={p}/{dtype}"))
+    say(f"phase 7: {len(SSD_LS) * len(SSD_NPS) * len(err)} SSD cases agree "
+        f"with the plain version at G={g}, L in {SSD_LS}, (N, P) in "
+        f"{SSD_NPS}, f32 and bf16, cumsum(a) down to {low:.1f}, no NaN or "
+        f"inf ({time.perf_counter() - t0:.1f} s); max |err| f32 "
+        f"{err[torch.float32]:.3g}, bf16 {err[torch.bfloat16]:.3g}")
+    return err
+
+
+def rel_diff(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_mamba2(device, max_err):
+    """Phase 7: the Mamba2 serving path at full width.  Returns the SSD
+    kernel's launches on the main path (one ``generate``) and its
+    numbers on layer 0's inputs."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.models import lm, ssm
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import generate, pad_cache
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must not run in TF32 here")
+    cfg = ARCHS[MAMBA]
+    b, s = PROMPT
+
+    def rcfg(dtype, use_pallas=True):
+        return RunConfig(model=cfg, shape=ShapeConfig(
+            "serve", s + NEW_TOKENS, b, "decode"), compute_dtype=dtype,
+            use_pallas=use_pallas)
+    t0 = time.perf_counter()
+    model = M.init(cfg, SEED, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.parameters())
+    say(f"phase 7: {MAMBA}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab {cfg.vocab_size} "
+        f"padded to {cfg.padded_vocab}: {n_params} params drawn on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device, dtype=torch.int32)
+    bf16 = rcfg("bfloat16")
+
+    # the main path: one generate(), launches counted
+    torch.cuda.reset_peak_memory_stats()
+    ssd_chunk_kernel.launches = 0
+    toks, gen_s = timed(lambda: generate(
+        cfg, bf16, model, {"tokens": tokens}, max_new_tokens=NEW_TOKENS,
+        device=device))
+    launches = ssd_chunk_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"phase 7: generate() {b} x {s} prompt tokens + {NEW_TOKENS} "
+        f"greedy, bf16, kernel path: {gen_s:.2f} s, ssd_chunk launches "
+        f"{launches} (one per layer), peak {peak:.2f} GiB; first tokens "
+        f"{toks[:, 0].tolist()}")
+    if launches != cfg.num_layers:
+        raise AssertionError(f"ssd_chunk launched {launches} times in one "
+                             f"prefill of {cfg.num_layers} layers")
+    if toks.shape != (b, NEW_TOKENS) or toks.dtype != torch.int32 or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"generate() gave {toks.dtype} "
+                             f"{tuple(toks.shape)} outside the vocab")
+
+    # prefill and decode times
+    pre = []
+    for _ in range(3):
+        (logits, cache), sec = timed(lambda: M.prefill(
+            cfg, bf16, model, {"tokens": tokens}))
+        pre.append(sec * 1e3)
+    if not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+        raise AssertionError("prefill logits are not finite")
+    cache = pad_cache(cfg, cache, s + NEW_TOKENS)
+    tok = logits.argmax(-1).to(torch.int32)
+
+    def decode():
+        c, t = cache, tok
+        for i in range(16):
+            lg, c = M.decode_step(cfg, bf16, model, c, t, s + i)
+            t = lg.argmax(-1).to(torch.int32)
+    dec_ms = wall_s(decode) / 16 * 1e3
+    pre_ms = statistics.median(pre)
+    say(f"phase 7: prefill {b} x {s} median of 3: {pre_ms:.1f} ms "
+        f"({', '.join(f'{t:.1f}' for t in pre)}), {b * s / pre_ms * 1e3:.0f} "
+        f"tokens/s; decode {dec_ms:.2f} ms/token at batch {b} "
+        f"({b / dec_ms * 1e3:.0f} tokens/s)")
+
+    # the kernel against its plain version, then on layer 0's own inputs
+    err = phase_ssd_grid(cfg.ssm_heads * b * s // 128, device)
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return ssd_chunk_kernel(*args)
+    ssm.ssd_chunk_kernel = record
+    try:
+        M.prefill(cfg, bf16, model, {"tokens": tokens})
+    finally:
+        ssm.ssd_chunk_kernel = ssd_chunk_kernel
+    args = seen[0]
+    (g, L, n), p = args[0].shape, args[2].shape[2]
+    if args[0].dtype != torch.float32:
+        raise AssertionError(f"the mixer gave the kernel {args[0].dtype}")
+    # the main path's dtype: its error is the kernels line's max_abs_err
+    max_err["ssd_chunk"] = max(err[torch.float32], ssd_check(
+        ssd_chunk_kernel(*args), ssd_chunk_ref(*args), "ssd_chunk/layer 0"))
+    ms = cuda_ms(lambda: ssd_chunk_kernel(*args), REPS)
+    plain = cuda_ms(lambda: ssd_chunk_ref(*args), REPS)
+    bound, by, byte_ms, flop_ms = ssd_bound(g, L, n, p,
+                                            args[0].element_size())
+    low = float(torch.cumsum(args[3], 1).min())
+    say(f"phase 7: ssd_chunk on layer 0's inputs: G={g}, L={L}, N={n}, "
+        f"P={p}, {args[0].dtype}, cumsum(a) down to {low:.1f}; median of "
+        f"{REPS}: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+        f"{bound:.4f} ms by {by} (bytes G(2LN + 2LP)e + 4GL over 3.35 TB/s "
+        f"= {byte_ms:.4f} ms; G L(L+1)/2 (N + P) 2 FLOPs over 67 TFLOP/s = "
+        f"{flop_ms:.4f} ms); {cfg.num_layers} x kernel / prefill = "
+        f"{cfg.num_layers * ms / pre_ms:.3f}")
+    say("phase 7: library_ms for ssd_chunk is null: no one PyTorch call "
+        "computes the masked, decayed C B^T x of a chunk")
+    del seen, args, cache, logits
+
+    # on-card oracles in f32
+    f32, f32_plain = rcfg("float32"), rcfg("float32", use_pallas=False)
+    ob, os_ = ORACLE
+    short = tokens[:ob, :os_]
+    with torch.no_grad():
+        lk, _ = lm.forward(cfg, f32, model, short)
+        lp, _ = lm.forward(cfg, f32_plain, model, short)
+    d_path = rel_diff(lk[..., :cfg.vocab_size], lp[..., :cfg.vocab_size])
+    del lk
+    k = 8
+    head, c = M.prefill(cfg, f32, model, {"tokens": short[:, :-k]})
+    for pos in range(os_ - k, os_):
+        head, c = M.decode_step(cfg, f32, model, c, short[:, pos, None], pos)
+    d_dec = rel_diff(head[..., :cfg.vocab_size],
+                     lp[:, -1:, :cfg.vocab_size])
+    del lp
+    mixer = model.layers[0].mixer
+    x = torch.randn(2, 256, cfg.d_model, generator=gen, device=device)
+    with torch.no_grad():
+        y_chunk, _ = ssm.ssm_apply(cfg, mixer, x, use_pallas=True)
+        y_seq = ssm.ssm_ref(cfg, mixer, x)
+    d_ref = rel_diff(y_chunk, y_seq)
+    say(f"phase 7: oracles, f32, {ob} x {os_} tokens: kernel path vs einsum "
+        f"path logits {d_path:.3g} of the largest (bound 1e-4); prefill of "
+        f"{os_ - k} + {k} decode steps vs prefill of {os_}: {d_dec:.3g} "
+        f"(bound 1e-2: the prefill stores the conv cache in bf16, as the "
+        f"reference does); layer 0 ssm_apply vs ssm_ref on 256 tokens "
+        f"{d_ref:.3g} (bound 1e-4)")
+    for what, d, bound_ in (("kernel vs einsum path", d_path, 1e-4),
+                            ("decode vs prefill", d_dec, 1e-2),
+                            ("ssm_apply vs ssm_ref", d_ref, 1e-4)):
+        if not d <= bound_:
+            raise AssertionError(f"phase 7 oracle {what}: {d} > {bound_}")
+    return launches, dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                          bound_by=by, library_ms=None)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -577,7 +817,9 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s; ptxas spill lines with loads: "
         f"{len(regs)}")
 
-    max_err = {name: 0.0 for name in KERNELS}
+    # phase 3's kernels; phase 7 adds the SSD chunk's
+    max_err = dict.fromkeys(("coarse_commit", "fused_route_commit",
+                             "bucket_count"), 0.0)
     phase_kernel_grid(device, max_err)
     phase_count_grid(device, max_err)
 
@@ -606,14 +848,18 @@ def main() -> int:
         "and pagerank x V agrees with pagerank_reference (float64)")
 
     engine_launches = phase_engine(g, device, single)
-    launches = {name: launches.get(name, 0) + engine_launches[name]
+    del g, single
+    mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
+    launches = {name: launches.get(name, 0) + engine_launches.get(name, 0)
                 for name in KERNELS}
+    launches["ssd_chunk"] = mamba_launches
 
     kernels = [dict(name=name, route="cuda", source=src_path,
                     replaces=replaces, launches=launches[name],
                     max_abs_err=max_err[name], ms=times[name]["ms"],
                     plain_ms=times[name]["plain_ms"],
-                    bound_ms=times[name]["bound_ms"], bound_by="bytes",
+                    bound_ms=times[name]["bound_ms"],
+                    bound_by=times[name]["bound_by"],
                     library_ms=times[name]["library_ms"])
                for name, (src_path, replaces) in KERNELS.items()]
     say(json.dumps({"kernels": kernels}))

@@ -1,0 +1,173 @@
+"""Model and run configuration: the port's own copy of
+``repro.configs.base`` (the reference package is never imported).
+
+A :class:`ModelConfig` describes one architecture, a :class:`RunConfig`
+binds it to a shape and a compute dtype.  The fields and defaults are the
+reference's, so a config means the same in both packages; of the derived
+quantities, the port keeps the ones its model code reads.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer position inside the repeating block.
+
+    mixer: "attn" | "attn_local" | "mamba"
+    mlp:   "dense" | "moe" | "none"
+    """
+    mixer: str = "attn"
+    mlp: str = "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | hybrid | ssm | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # repeating layer pattern; len(pattern) must divide num_layers.
+    pattern: Sequence[LayerSpec] = (LayerSpec(),)
+
+    # --- attention details ---
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    attn_softcap: Optional[float] = None     # gemma2: 50.0
+    logit_softcap: Optional[float] = None    # gemma2: 30.0
+    sliding_window: Optional[int] = None     # window for "attn_local" mixers
+    rope_theta: float = 10000.0
+    pos_embedding: str = "rope"              # "rope" | "learned" | "none"
+    max_position: int = 0                    # learned-pos table size (0=auto)
+    use_post_norm: bool = False              # gemma2 post-layer norms
+
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_kernel: int = 4
+    ssm_groups: int = 1
+
+    # --- MLP style ---
+    mlp_gated: bool = True                   # llama-style SwiGLU vs plain GELU
+
+    # --- enc-dec (whisper) ---
+    encoder_layers: int = 0                  # >0 => encoder-decoder
+    encoder_seq: int = 0                     # stub frontend sequence length
+
+    # --- modality frontend stubs ---
+    frontend: Optional[str] = None           # "patch" | "audio" | None
+    frontend_seq: int = 0                    # extra prefix embeddings per seq
+
+    # --- misc ---
+    tie_embeddings: bool = False
+    scale_embeddings: bool = False           # gemma-style sqrt(d) embed scale
+    norm_eps: float = 1e-6
+    vocab_pad_to: int = 256
+    # attention implementation: chunked flash path beyond this many kv tokens
+    attn_chunk: int = 2048
+
+    # ---- derived ----
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return (self.vocab_size + p - 1) // p * p
+
+    @property
+    def d_inner(self) -> int:                # SSD inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def full_pattern(self) -> Sequence[LayerSpec]:
+        if self.num_layers % len(self.pattern):
+            raise ValueError(f"{self.name}: pattern {len(self.pattern)} "
+                             f"does not divide {self.num_layers} layers")
+        return tuple(self.pattern)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.num_layers // len(self.pattern)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The reference's run configuration, field for field.  The port reads
+    ``compute_dtype`` and ``use_pallas``; the mesh, optimizer, remat, MoE
+    and attention fields wait for the slices that port those paths."""
+    model: ModelConfig
+    shape: ShapeConfig
+    multi_pod: bool = False
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    remat: str = "full"
+    microbatches: int = 1
+    moe_impl: str = "aam"
+    attn_causal_skip: bool = False
+    shard_grads: bool = False
+    serve_tp: bool = False
+    seq_parallel: bool = False
+    # the hand-written kernels where the reference has Pallas ones (the SSD
+    # chunk); False runs the plain einsum path
+    use_pallas: bool = False
+    grad_compression: str = "none"
+    seed: int = 0
+
+
+def smoke_model(cfg: ModelConfig) -> ModelConfig:
+    """Shrink a config to a CPU-runnable smoke variant of the same family."""
+    pat = cfg.full_pattern
+    # keep one full pattern block (preserves heterogeneity)
+    num_layers = len(pat)
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-smoke",
+        num_layers=num_layers,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=max(1, min(cfg.num_kv_heads, 2)),
+        head_dim=16,
+        d_ff=128,
+        moe_d_ff=64 if cfg.moe_d_ff else 0,
+        num_experts=min(cfg.num_experts, 4),
+        experts_per_token=min(cfg.experts_per_token, 2),
+        vocab_size=503,          # deliberately ragged to exercise padding
+        vocab_pad_to=64,
+        sliding_window=32 if cfg.sliding_window else None,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=16 if cfg.ssm_state else 64,
+        encoder_layers=2 if cfg.encoder_layers else 0,
+        encoder_seq=24 if cfg.encoder_seq else 0,
+        frontend_seq=8 if cfg.frontend_seq else 0,
+        attn_chunk=64,
+    )

@@ -1,5 +1,5 @@
-"""Carry graphs, messages, commit state and bucket plans across from host
-arrays.
+"""Carry graphs, messages, commit state, bucket plans and LM weights across
+from host arrays.
 
 The reference package's arrays, taken to numpy (``np.asarray(g.src)``,
 ...), become the port's objects on a chosen device, so both packages can
@@ -70,3 +70,36 @@ def to_bucket_plan(owner, position, counts, kept, dropped, *,
                          f"{tuple(plan.position.shape)}, kept "
                          f"{tuple(plan.kept.shape)} disagree")
     return plan
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def to_lm_params(cfg, params, *, device="cuda") -> dict[str, torch.Tensor]:
+    """The state dict of :class:`repro_torch.models.lm.LM` from the
+    reference's LM params (``repro.models.model.init``), leaves as host
+    arrays.  The reference stacks each pattern position ``i`` over the
+    blocks: ``blocks[i][name][j]`` is layer ``j * len(pattern) + i``."""
+    device = resolve_device(device)
+
+    def put(a):
+        return torch.as_tensor(np.array(a), device=device)
+    out = {f"embed.{k}": put(a) for k, a in _flatten(params["embed"])}
+    n = len(cfg.full_pattern)
+    if len(params["blocks"]) != n:
+        raise ValueError(f"{len(params['blocks'])} pattern positions in "
+                         f"params, {n} in {cfg.name}")
+    for i, block in enumerate(params["blocks"]):
+        for name, a in _flatten(block):
+            if a.shape[0] != cfg.num_blocks:
+                raise ValueError(f"blocks[{i}].{name} stacks {a.shape[0]} "
+                                 f"blocks, {cfg.name} has {cfg.num_blocks}")
+            for j in range(cfg.num_blocks):
+                out[f"layers.{j * n + i}.{name}"] = put(a[j])
+    out["final_norm"] = put(params["final_norm"])
+    return out

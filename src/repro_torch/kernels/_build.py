@@ -33,6 +33,8 @@ ENTRIES = {
                    [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                     _I, _I, _P]),
     "coalesce": ("aam_bucket_count", [_P, _P, _L, _I, _P]),
+    "ssd_chunk": ("aam_ssd_chunk",
+                  [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
 }
 
 SOURCES = tuple(ENTRIES)

@@ -4,9 +4,10 @@ The two commit kernels' versions give the same committed state and the
 same per-tile conflict count as their CUDA kernels
 (``csrc/coarse_commit.cu``, ``csrc/fused_wave.cu``) and as the Pallas
 kernels of the reference; :func:`bucket_count_ref` gives the same counts
-as ``csrc/coalesce.cu``.  The kernel wrappers run these for
-tensors on the CPU; the tests and ``chip_smoke.py`` hold the kernels
-against them.  ``scatter_reduce`` into a buffer with a sentinel row at
+as ``csrc/coalesce.cu``; :func:`ssd_chunk_ref` is the SSD intra-chunk
+block of ``csrc/ssd_chunk.cu`` up to f32 rounding.  The kernel wrappers
+run these for tensors on the CPU; the tests and ``chip_smoke.py`` hold
+the kernels against them.  ``scatter_reduce`` into a buffer with a sentinel row at
 index V stands in for JAX's ``FILL_OR_DROP`` scatter mode.
 """
 from __future__ import annotations
@@ -115,3 +116,21 @@ def bucket_count_ref(owner, num_buckets: int):
                          device=owner.device)
     counts.scatter_add_(0, safe, torch.ones_like(safe, dtype=torch.int32))
     return counts[:num_buckets]
+
+
+def ssd_chunk_ref(C, B, x, a):
+    """Plain version of the SSD intra-chunk kernel, batched over G cells.
+
+    C, B: [G, L, N]; x: [G, L, P]; a: [G, L] log-decays.  With
+    ``cs = cumsum(a)``, ``y[t] = sum_{s<=t} (C_t.B_s) exp(cs_t - cs_s) x_s``,
+    accumulated in f32 and returned in ``x.dtype``.  ``cs`` is summed in
+    f64 and rounded to f32, as the kernel does: at ``|cs|`` near 250 two f32
+    summation orders move a decay by up to 1e-3.  The mask is applied before
+    the product, since ``exp`` of an entry with ``s > t`` may be inf."""
+    f32 = torch.float32
+    L = a.shape[-1]
+    cs = torch.cumsum(a.to(torch.float64), dim=-1).to(f32)
+    tri = torch.ones(L, L, dtype=torch.bool, device=a.device).tril()
+    decay = torch.where(tri, torch.exp(cs[:, :, None] - cs[:, None, :]), 0.0)
+    gram = torch.bmm(C.to(f32), B.to(f32).transpose(1, 2)) * decay
+    return torch.bmm(gram, x.to(f32)).to(x.dtype)

@@ -1,0 +1,215 @@
+"""Mamba2 (SSD, state-space duality) mixer in the chunked-scan form.
+
+Port of ``repro.models.ssm``.  Per head (state size N, head dim P):
+    H_t = exp(A dt_t) H_{t-1} + dt_t (B_t (x) x_t)        H: [P, N]
+    y_t = H_t C_t + D x_t
+:func:`ssm_apply` splits the sequence into chunks of length L: a quadratic
+intra-chunk term (the hand-written kernel
+:func:`repro_torch.kernels.ssd_chunk.ssd_chunk_kernel` when ``use_pallas``,
+else two einsums) plus a recurrence over the chunk states, a host loop
+over chunks.  :func:`ssm_decode` takes one token; :func:`ssm_ref` steps it
+over a sequence and is the oracle of the chunked form.
+
+Dtypes follow the reference: ``dt`` is a softplus of an f32 sum, the SSD
+terms run in f32, ``D x`` is added in f32, the gate ``y silu(z)`` runs in
+the compute dtype and the norm in f32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+from repro_torch.models.layers import dense_init, rmsnorm
+
+
+class Mamba2Mixer(nn.Module):
+    """The parameters of one Mamba2 mixer, in the reference's layout and
+    with its init (``repro.models.ssm.ssm_init``), drawn from
+    ``generator`` on its device."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
+                 dtype=torch.float32):
+        super().__init__()
+        d, din = cfg.d_model, cfg.d_inner
+        gst, nh, kk = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads, \
+            cfg.ssm_conv_kernel
+        dev = generator.device
+
+        def uniform(lo, hi):
+            return torch.empty(nh, device=dev).uniform_(lo, hi,
+                                                        generator=generator)
+        self.wz = dense_init((d, din), generator, dtype=dtype)
+        self.wx = dense_init((d, din), generator, dtype=dtype)
+        self.wB = dense_init((d, gst), generator, dtype=dtype)
+        self.wC = dense_init((d, gst), generator, dtype=dtype)
+        self.wdt = dense_init((d, nh), generator, dtype=dtype)
+        conv_scale = (1 / kk) ** 0.5
+        self.conv_x = dense_init((kk, din), generator, scale=conv_scale,
+                                 dtype=dtype)
+        self.conv_B = dense_init((kk, gst), generator, scale=conv_scale,
+                                 dtype=dtype)
+        self.conv_C = dense_init((kk, gst), generator, scale=conv_scale,
+                                 dtype=dtype)
+        # A in [-16, -1): A_log ~ log(U[1, 16))
+        self.A_log = nn.Parameter(torch.log(uniform(1.0, 16.0)).to(dtype))
+        self.D = nn.Parameter(torch.ones(nh, device=dev, dtype=dtype))
+        # softplus(dt_bias) ~ logspace[1e-3, 1e-1]
+        dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1)))
+        self.dt_bias = nn.Parameter(
+            (dt + torch.log(-torch.expm1(-dt))).to(dtype))
+        self.norm = nn.Parameter(torch.ones(din, device=dev, dtype=dtype))
+        self.wo = dense_init((din, d), generator, dtype=dtype)
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv.  x: [B, S, C]; w: [K, C]; state: [B, K-1, C]
+    previous inputs or None.  Returns (y [B, S, C], new state)."""
+    k = w.shape[0]
+    if state is None:
+        state = x.new_zeros(x.shape[0], k - 1, x.shape[2])
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i].to(x.dtype) for i in range(k))
+    new_state = xp[:, -(k - 1):] if k > 1 else state
+    return y, new_state
+
+
+def _segsum_mask(a):
+    """a: [..., L] log-decays -> M[..., t, s] = exp(sum_{s<u<=t} a_u) for
+    s <= t, else 0."""
+    L = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    tri = torch.ones(L, L, dtype=torch.bool, device=a.device).tril()
+    return torch.where(tri, torch.exp(diff), 0.0)
+
+
+def _project(cfg: ModelConfig, p: Mamba2Mixer, x):
+    cd = x.dtype
+    z = x @ p.wz.to(cd)
+    xin = x @ p.wx.to(cd)
+    B = x @ p.wB.to(cd)
+    C = x @ p.wC.to(cd)
+    dt = F.softplus((x @ p.wdt.to(cd)).float() + p.dt_bias.float())
+    return z, xin, B, C, dt
+
+
+def _conv_silu(cfg: ModelConfig, p: Mamba2Mixer, xin, B, C, state):
+    """The causal conv over [x, B, C] and its SiLU, split back apart."""
+    conv_in = torch.cat([xin, B, C], dim=-1)
+    conv_w = torch.cat([p.conv_x, p.conv_B, p.conv_C], dim=-1)
+    conv_out, conv_state = _causal_conv(conv_in, conv_w, state)
+    conv_out = F.silu(conv_out)
+    din, gst = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    return (conv_out[..., :din], conv_out[..., din:din + gst],
+            conv_out[..., din + gst:], conv_state)
+
+
+def _finish(cfg: ModelConfig, p: Mamba2Mixer, y, x_heads, z):
+    b, s = y.shape[0], y.shape[1]
+    y = y + p.D.float()[None, None, :, None] * x_heads.float()
+    y = y.reshape(b, s, cfg.d_inner).to(z.dtype)
+    y = y * F.silu(z)
+    y = rmsnorm(y, p.norm, cfg.norm_eps)
+    return y @ p.wo.to(z.dtype)
+
+
+def ssm_apply(cfg: ModelConfig, p: Mamba2Mixer, x, *, chunk: int = 128,
+              initial_state=None, use_pallas: bool = False):
+    """x: [B, S, d].  Returns (out [B, S, d], (conv_state, ssm_state)), the
+    SSM state [B, heads, P, N] in f32."""
+    b, s, _ = x.shape
+    nh, hd, st, g = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                     cfg.ssm_groups)
+    z, xin, B, C, dt = _project(cfg, p, x)
+    conv_state_in = initial_state[0] if initial_state is not None else None
+    xin, B, C, conv_state = _conv_silu(cfg, p, xin, B, C, conv_state_in)
+
+    L = min(chunk, s)
+    while s % L:
+        L -= 1
+    nc = s // L
+    xh = xin.reshape(b, nc, L, nh, hd).float()
+    hpg = nh // g
+    Bh = B.reshape(b, nc, L, g, st).float().repeat_interleave(hpg, dim=3)
+    Ch = C.reshape(b, nc, L, g, st).float().repeat_interleave(hpg, dim=3)
+    dtc = dt.reshape(b, nc, L, nh)
+    A = -torch.exp(p.A_log.float())
+    a_t = (dtc * A).transpose(-1, -2)                    # [b, nc, nh, L]
+    xdt = xh * dtc[..., None]
+
+    # intra-chunk, quadratic
+    if use_pallas:
+        cells = b * nc * nh
+
+        def cell_major(t):        # [b, nc, L, nh, k] -> [cells, L, k]
+            return t.permute(0, 1, 3, 2, 4).reshape(cells, L, -1) \
+                .contiguous()
+        yg = ssd_chunk_kernel(cell_major(Ch), cell_major(Bh), cell_major(xdt),
+                              a_t.reshape(cells, L).contiguous())
+        y_intra = yg.reshape(b, nc, nh, L, hd).permute(0, 1, 3, 2, 4)
+    else:
+        G = torch.einsum("bclhn,bcshn->bchls", Ch, Bh)
+        y_intra = torch.einsum("bchls,bcshp->bclhp", G * _segsum_mask(a_t),
+                               xdt)
+
+    # chunk states
+    cs = torch.cumsum(a_t, dim=-1)
+    decay_to_end = torch.exp(cs[..., -1:] - cs)          # [b, nc, nh, L]
+    S_c = torch.einsum("bchl,bclhn,bclhp->bchpn", decay_to_end, Bh, xdt)
+
+    # inter-chunk recurrence; the state before each chunk
+    chunk_decay = torch.exp(cs[..., -1])                 # [b, nc, nh]
+    h = (initial_state[1].float() if initial_state is not None
+         else x.new_zeros(b, nh, hd, st, dtype=torch.float32))
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + S_c[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                # [b, nc, nh, P, N]
+
+    y_inter = torch.einsum("bclhn,bchpn,bchl->bclhp", Ch, h_prevs,
+                           torch.exp(cs))
+    y = (y_intra + y_inter).reshape(b, s, nh, hd)
+    out = _finish(cfg, p, y, xin.reshape(b, s, nh, hd), z)
+    return out, (conv_state, h.float())
+
+
+def ssm_decode(cfg: ModelConfig, p: Mamba2Mixer, x, conv_state, ssm_state):
+    """One-token decode.  x: [B, 1, d]; states as :func:`ssm_apply` returns
+    them.  The conv state is taken in ``x.dtype`` and returned in it."""
+    b = x.shape[0]
+    nh, hd, st, g = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                     cfg.ssm_groups)
+    z, xin, B, C, dt = _project(cfg, p, x)
+    xin, B, C, conv_state = _conv_silu(cfg, p, xin, B, C,
+                                       conv_state.to(xin.dtype))
+    xh = xin.reshape(b, nh, hd).float()
+    Bh = B.reshape(b, g, st).repeat_interleave(nh // g, dim=1).float()
+    Ch = C.reshape(b, g, st).repeat_interleave(nh // g, dim=1).float()
+    dt1 = dt[:, 0]                                       # [b, nh]
+    A = -torch.exp(p.A_log.float())
+    dec = torch.exp(dt1 * A[None, :])
+    h = ssm_state.float() * dec[..., None, None] + torch.einsum(
+        "bh,bhp,bhn->bhpn", dt1, xh, Bh)
+    y = torch.einsum("bhpn,bhn->bhp", h, Ch)[:, None]    # [b, 1, nh, hd]
+    out = _finish(cfg, p, y, xh[:, None], z)
+    return out, (conv_state, h)
+
+
+def ssm_ref(cfg: ModelConfig, p: Mamba2Mixer, x):
+    """Sequential oracle: :func:`ssm_decode` stepped over every position."""
+    b, s, _ = x.shape
+    conv_state = x.new_zeros(b, cfg.ssm_conv_kernel - 1,
+                             cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
+    h = x.new_zeros(b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                    dtype=torch.float32)
+    outs = []
+    for t in range(s):
+        o, (conv_state, h) = ssm_decode(cfg, p, x[:, t:t + 1], conv_state, h)
+        outs.append(o)
+    return torch.cat(outs, dim=1)

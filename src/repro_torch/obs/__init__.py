@@ -1,1 +1,2 @@
-"""Measurement tools of the PyTorch port (``round_profile``)."""
+"""Measurement tools of the PyTorch port (``round_profile``,
+``serve_profile``)."""

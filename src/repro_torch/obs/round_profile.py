@@ -73,11 +73,14 @@ def main() -> int:
                 ecfg, torch.zeros(v, device="cuda"), g.dst, contrib,
                 valid)[3]},
             f"engine, one PageRank wave, world size 1, C = 2^24, {backend}, "
-            f"scale {SCALE}; the count is sub-rounds", steps=True)
+            f"scale {SCALE}; the count is sub-rounds", steps=STEPS)
     return 0
 
 
-def profile_runs(runs, label, steps=False):
+def profile_runs(runs, label, steps=()):
+    """Profile each ``run`` (a callable returning its count of rounds)
+    after one warm-up call; ``steps`` groups device time by
+    ``(step, substrings of its kernels' names)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for name, run in runs.items():
@@ -105,7 +108,7 @@ def profile_runs(runs, label, steps=False):
         if steps:
             by_step = {}
             for e in events:
-                step = next((name for name, keys in STEPS
+                step = next((name for name, keys in steps
                              if any(k in e.key for k in keys)), "the rest")
                 by_step[step] = by_step.get(step, 0) + e.device_time_total
             print("  by step: " + ", ".join(

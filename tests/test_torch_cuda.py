@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain versions, and the wave
-engine on the card against the engine on the CPU.
+"""The port's CUDA kernels against their plain versions, the wave engine
+on the card against the engine on the CPU, and the Mamba2 serving path on
+its kernel path against its plain path.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -8,11 +9,18 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerance: bit-identical state, conflict count and bucket counts; float
 ``add`` within rtol 2e-4 / atol 1e-6 (atomics add in an order that
-changes run to run).
+changes run to run).  The SSD chunk: f32 atol 1e-4 with rtol 1e-3 (kernel
+and plain version sum the products in other orders); bf16 inputs atol
+1e-2, rtol 1e-2 (both sum in f32 and part by at most one rounding of the
+output to bf16).
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs.archs import ARCHS
+from repro_torch.configs.base import RunConfig, ShapeConfig, smoke_model
 from repro_torch.core.coalescing import plan_buckets_sorted
 from repro_torch.core.commit import BACKENDS, CommitSpec, commit
 from repro_torch.core.messages import make_messages
@@ -25,7 +33,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.coalesce import bucket_count_kernel
 from repro_torch.kernels.coarse_commit import coarse_commit_kernel
 from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import model as M
+from repro_torch.serve.serve_step import generate, pad_cache
 
 OPS_TYPES = [(op, dt) for op in ("min", "max", "add", "or", "first")
              for dt in (torch.int32, torch.float32)]
@@ -189,3 +200,102 @@ def test_engine_on_card_matches_cpu(cuda, backend):
             torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-6)
         else:
             assert torch.equal(a, b)
+
+
+def ssd_inputs(g, L, n, p, dtype, gen, device):
+    """C, B, x normal in ``dtype``; a in f32 with cumsum(a) falling to
+    about -250 over the chunk, as in a full-width prefill."""
+    C, B = (torch.randn(g, L, n, generator=gen) for _ in range(2))
+    x = torch.randn(g, L, p, generator=gen)
+    a = -torch.rand(g, L, generator=gen) * (500.0 / L)
+    return [t.to(dtype).to(device) for t in (C, B, x)] + [a.to(device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,p", [(16, 16), (128, 64)])
+@pytest.mark.parametrize("L", [1, 7, 64, 100, 125, 128])
+def test_ssd_chunk_matches_plain(cuda, L, n, p, dtype):
+    gen = torch.Generator().manual_seed(L * 7 + n)
+    args = ssd_inputs(96, L, n, p, dtype, gen, cuda)
+    before = ssd_chunk_kernel.launches
+    got = ssd_chunk_kernel(*args)
+    exp = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk_kernel.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, exp, atol=1e-4, rtol=1e-3)
+    else:
+        torch.testing.assert_close(got.float(), exp.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_rejects_what_it_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(0)
+    C, B, x, a = ssd_inputs(4, 16, 16, 16, torch.float32, gen, cuda)
+    with pytest.raises(ValueError, match="chunk length"):
+        ssd_chunk_kernel(*ssd_inputs(2, 129, 16, 16, torch.float32, gen,
+                                     cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_chunk_kernel(*ssd_inputs(2, 128, 16, 512, torch.float32, gen,
+                                     cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk_kernel(C.transpose(0, 1).contiguous().transpose(0, 1), B,
+                         x, a)
+    with pytest.raises(TypeError):
+        ssd_chunk_kernel(C, B.to(torch.bfloat16), x, a)
+    with pytest.raises(TypeError):
+        ssd_chunk_kernel(C, B, x, a.to(torch.bfloat16))
+    with pytest.raises(TypeError):
+        ssd_chunk_kernel(*(t.half() for t in (C, B, x)), a)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ssd_chunk_kernel(C.requires_grad_(), B, x, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_kernel_path_matches_plain_path(cuda, dtype):
+    """A 2-layer smoke Mamba2 on the card: the prefill launches the SSD
+    kernel once per layer, and its logits equal the einsum path's (within
+    1e-4 of the largest in f32, 0.05 in bf16).  In f32 the greedy tokens of
+    ``generate`` are equal too, at each step until the einsum path's top-2
+    margin falls within that tolerance (a near-tie may flip)."""
+    cfg = dataclasses.replace(smoke_model(ARCHS["mamba2-780m"]), num_layers=2)
+    model = M.init(cfg, 0, device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen,
+                           dtype=torch.int32)
+    s, n_new = prompt.shape[1], 8
+    rcfgs, out = {}, {}
+    for use_pallas in (True, False):
+        rcfgs[use_pallas] = rcfg = RunConfig(
+            model=cfg, shape=ShapeConfig("t", s + n_new, 2, "decode"),
+            compute_dtype=dtype, use_pallas=use_pallas)
+        before = ssd_chunk_kernel.launches
+        logits, _ = M.prefill(cfg, rcfg, model, {"tokens": prompt.to(cuda)})
+        assert ssd_chunk_kernel.launches - before == (
+            cfg.num_layers if use_pallas else 0)
+        toks = generate(cfg, rcfg, model, {"tokens": prompt},
+                        max_new_tokens=n_new, device=cuda)
+        out[use_pallas] = logits.float()[..., :cfg.vocab_size], toks
+    (kl, kt), (pl, pt) = out[True], out[False]
+    tol = 1e-4 if dtype == "float32" else 0.05
+    assert float((kl - pl).abs().max()) <= tol * float(pl.abs().max())
+    if dtype != "float32":
+        return
+    # the einsum path's logits at each step, for the margin rule
+    logits, cache = M.prefill(cfg, rcfgs[False], model,
+                              {"tokens": prompt.to(cuda)})
+    cache = pad_cache(cfg, cache, s + n_new)
+    for i in range(n_new):
+        top2 = logits[:, 0, :cfg.vocab_size].float().topk(2).values
+        if float((top2[:, 0] - top2[:, 1]).min()) <= \
+                tol * float(top2.abs().max()):
+            break
+        assert torch.equal(kt[:, i], pt[:, i]), f"step {i}"
+        logits, cache = M.decode_step(cfg, rcfgs[False], model, cache,
+                                      pt[:, i:i + 1], s + i)
+    assert i > 0, "the first step was already a near-tie"

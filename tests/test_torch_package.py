@@ -36,7 +36,12 @@ def test_port_imports_without_jax_or_reference():
                              if sys.modules[m] is not None]
         for name in ("repro_torch.core.coalescing", "repro_torch.core.engine",
                      "repro_torch.core.tree", "repro_torch.kernels.coalesce",
-                     "repro_torch.launch.mesh"):
+                     "repro_torch.launch.mesh", "repro_torch.configs.archs",
+                     "repro_torch.kernels.ssd_chunk",
+                     "repro_torch.models.ssm", "repro_torch.models.lm",
+                     "repro_torch.models.model",
+                     "repro_torch.serve.serve_step",
+                     "repro_torch.launch.serve"):
             assert name in names, name
         print(len(names))
     """)
@@ -44,14 +49,20 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20    # every module was found
+    assert int(out.stdout.split()[-1]) >= 30    # every module was found
 
 
 def _entry_points():
     from repro_torch import convert
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig, smoke_model
     from repro_torch.graphs import csr, generators
     from repro_torch.launch import mesh
+    from repro_torch.models import model
+    from repro_torch.serve.serve_step import generate
     edges = np.array([0, 1]), np.array([1, 2])
+    cfg = smoke_model(ARCHS["mamba2-780m"])
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 4, 1, "decode"))
     return [
         lambda: generators.kronecker(4, 4),
         lambda: generators.erdos_renyi(16),
@@ -64,10 +75,17 @@ def _entry_points():
         lambda: convert.to_state([0, 0]),
         lambda: convert.to_bucket_plan([0], [0], [1], [True], 0),
         lambda: mesh.make_mesh(),
+        lambda: model.init(cfg),
+        lambda: model.init_cache(cfg, rcfg, 1, 4),
+        lambda: generate(cfg, rcfg, model.init(cfg, device="cpu"),
+                         {"tokens": torch.zeros(1, 2, dtype=torch.int32)},
+                         max_new_tokens=2),
+        lambda: convert.to_lm_params(cfg, {"embed": {}, "blocks": [],
+                                           "final_norm": np.ones(2)}),
     ]
 
 
-@pytest.mark.parametrize("i", range(11))
+@pytest.mark.parametrize("i", range(15))
 def test_entry_points_default_to_cuda(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -82,3 +100,26 @@ def test_entry_points_run_on_cpu_when_asked():
     r = bfs(g, 0)
     assert r.dist.device.type == "cpu"
     assert r.dist.tolist() == [i + j for i in range(4) for j in range(4)]
+
+
+def test_serve_launcher_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "mamba2-780m", "--smoke", "--device", "cpu", "--batch", "2",
+         "--prompt-len", "12", "--new-tokens", "4"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("[serve] mamba2-780m: generated (2, 4) in ")
+    assert lines[1].startswith("[serve] sample: [")
+
+
+def test_unported_families_raise():
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import smoke_model
+    from repro_torch.models import model
+    for name in ("qwen2-1.5b", "jamba-1.5-large-398b",
+                 "phi3.5-moe-42b-a6.6b", "whisper-small"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            model.init(smoke_model(ARCHS[name]), device="cpu")
