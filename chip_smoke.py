@@ -12,8 +12,9 @@ Phases, one or more lines each:
    dtype x stats x target skew x tile_m at V = 2**21, N = 2**26 (state
    bit-identical, float ``add`` within rtol 2e-4 / atol 1e-6, conflicts
    equal), then each checked against and timed beside its plain version
-   on the main path's own message batch, and one ``scatter_reduce_``
-   call timed on it; the bucket-count kernel equal to its plain version
+   on the main path's own message batch (f32 ``add``, f32 and int32
+   ``min``), and one ``scatter_reduce_`` call timed on it; the
+   bucket-count kernel equal to its plain version
    over num_buckets x owner skew x masked share at N = 2**26 and at
    N = 0 and 1, then timed beside its plain version and
    ``torch.bincount`` on the engine's own batch (the owner ids of a
@@ -48,7 +49,10 @@ Phases 4, 6 and 7 are the main path: each zeroes the kernels' launch
 counters before it and reads them after, and fails if a kernel of its
 path was not launched (phase 6: the bucket count, and the fused kernel
 with 4 lanes; phase 7: the SSD kernel once per layer).  Then one JSON
-line of per-kernel numbers and, last, the line
+line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
+device ms per launch, from launches back to back; ``call_ms`` is one
+launch after a synchronise, what a caller pays per call) and, last, the
+line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, and
 the script exits non-zero without that line.  It needs one card and the
 checkout's ``src/``; it imports nothing of the JAX package.
@@ -68,7 +72,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 ADD_RTOL, ADD_ATOL = 2e-4, 1e-6
 SCALE = 21                         # Kronecker scale of the main path's graph
 GRID_LOG2_V, GRID_LOG2_N = 21, 26  # phase 3's state and batch sizes
-REPS = 10                          # timed repeats per kernel
+REPS = 10                          # one-launch timings per kernel (call ms)
 SEED = 0
 OPS = ("min", "max", "add", "or", "first")
 KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
@@ -96,8 +100,13 @@ def say(*parts):
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` in ms, after one warm-up call."""
+def call_ms(fn, reps: int = REPS) -> float:
+    """Call ms: the median over ``reps`` of one call of ``fn`` bracketed
+    by an event pair after a synchronise, after one warm-up call.  The
+    card waits while the host prepares the launch, so this is what a
+    caller pays per call;
+    ``repro_torch.obs.timing.device_ms`` gives the card's time
+    per launch."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -246,6 +255,7 @@ def phase_kernel_times(g, device, max_err):
     from repro_torch.kernels import ref
     from repro_torch.kernels.coarse_commit import coarse_commit_kernel
     from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+    from repro_torch.obs.timing import device_ms
     v, n = g.num_vertices, g.num_edges
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     idx = g.dst
@@ -253,15 +263,18 @@ def phase_kernel_times(g, device, max_err):
     library_index = idx.long()
     out = {}
     say(f"phase 3: the main path's batch (N={n}, V={v}), each kernel "
-        f"equal to its plain version, then median of {REPS}; bound = "
+        f"equal to its plain version, then device ms (20 launches back to "
+        f"back between two events, median of 3 windows) of the kernel, its "
+        f"plain version and scatter_reduce_, and the kernel's call ms "
+        f"(one launch after a synchronise, median of {REPS}); bound = "
         f"(8N + 8V) bytes / 3.35 TB/s = {bound_ms:.4f} ms")
     for op, dtype, reduce in (("add", torch.float32, "sum"),
                               ("min", torch.float32, "amin"),
                               ("min", torch.int32, "amin")):
         state, val = grid_inputs(op, dtype, v, n, gen, device)
         buf = state.clone()
-        library = cuda_ms(lambda: buf.scatter_reduce_(
-            0, library_index, val, reduce), REPS)
+        library = device_ms(lambda: buf.scatter_reduce_(
+            0, library_index, val, reduce))
         for name, kernel, plain_fn in (
                 ("coarse_commit", coarse_commit_kernel,
                  ref.coarse_commit_ref),
@@ -274,18 +287,20 @@ def phase_kernel_times(g, device, max_err):
                               plain_fn(state, idx, val, op=op, stats=stats),
                               stats)
                 max_err[name] = max(max_err[name], err)
-            plain = cuda_ms(lambda: plain_fn(state, idx, val, op=op), REPS)
-            ms = cuda_ms(lambda: kernel(state, idx, val, op=op), REPS)
-            say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel {ms:.4f} ms"
-                f"  plain {plain:.4f} ms  scatter_reduce_ {library:.4f} ms"
-                f"  bound {bound_ms:.4f} ms")
+            plain = device_ms(lambda: plain_fn(state, idx, val, op=op))
+            ms = device_ms(lambda: kernel(state, idx, val, op=op))
+            call = call_ms(lambda: kernel(state, idx, val, op=op))
+            say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel device "
+                f"{ms:.4f} ms, call {call:.4f} ms  plain {plain:.4f} ms  "
+                f"scatter_reduce_ {library:.4f} ms  bound {bound_ms:.4f} ms")
             if (op, dtype) == ("add", torch.float32):
-                out[name] = dict(ms=ms, plain_ms=plain, library_ms=library,
-                                 bound_ms=bound_ms, bound_by="bytes")
-                stats_ms = cuda_ms(lambda: kernel(state, idx, val, op=op,
-                                                  stats=True), REPS)
+                out[name] = dict(ms=ms, call_ms=call, plain_ms=plain,
+                                 library_ms=library, bound_ms=bound_ms,
+                                 bound_by="bytes")
+                stats_ms = device_ms(lambda: kernel(state, idx, val, op=op,
+                                                    stats=True))
                 say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel with "
-                    f"stats=True (tile_m=256) {stats_ms:.4f} ms")
+                    f"stats=True (tile_m=256) device {stats_ms:.4f} ms")
     return out
 
 
@@ -438,6 +453,7 @@ def phase_count_times(g, device):
     import torch
     from repro_torch.kernels.coalesce import bucket_count_kernel
     from repro_torch.kernels.ref import bucket_count_ref
+    from repro_torch.obs.timing import device_ms
     v, n = g.num_vertices, g.num_edges
     out = None
     for shards, label in ((1, "the engine's own batch: the owner ids of a "
@@ -452,18 +468,20 @@ def phase_count_times(g, device):
         got = bucket_count_kernel(masked, shards)
         if not torch.equal(got, bucket_count_ref(masked, shards)):
             raise AssertionError(f"bucket_count differs on {label}")
-        ms = cuda_ms(lambda: bucket_count_kernel(masked, shards), REPS)
-        plain = cuda_ms(lambda: bucket_count_ref(masked, shards), REPS)
-        library = cuda_ms(lambda: torch.bincount(
-            owner_c, minlength=shards + 1)[:shards], REPS)
+        ms = device_ms(lambda: bucket_count_kernel(masked, shards))
+        call = call_ms(lambda: bucket_count_kernel(masked, shards))
+        plain = device_ms(lambda: bucket_count_ref(masked, shards))
+        library = device_ms(lambda: torch.bincount(
+            owner_c, minlength=shards + 1)[:shards])
         bound = (4 * n + 4 * shards) / HBM_BYTES_PER_S * 1e3
-        say(f"phase 3: bucket_count on {label}: N={n}, {shards} bucket(s), "
-            f"median of {REPS}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-            f"torch.bincount {library:.4f} ms  bound (4N + 4B) bytes / "
-            f"3.35 TB/s = {bound:.4f} ms")
+        say(f"phase 3: bucket_count on {label}: N={n}, {shards} bucket(s): "
+            f"kernel device {ms:.4f} ms, call {call:.4f} ms  plain "
+            f"{plain:.4f} ms  torch.bincount {library:.4f} ms (it makes the "
+            f"host wait for the card, so its device ms hold that wait)  "
+            f"bound (4N + 4B) bytes / 3.35 TB/s = {bound:.4f} ms")
         if out is None:
-            out = dict(ms=ms, plain_ms=plain, library_ms=library,
-                       bound_ms=bound, bound_by="bytes")
+            out = dict(ms=ms, call_ms=call, plain_ms=plain,
+                       library_ms=library, bound_ms=bound, bound_by="bytes")
             sync_lib = synchronises(lambda: torch.bincount(
                 owner_c, minlength=shards + 1))
             sync_kernel = synchronises(
@@ -648,6 +666,7 @@ def phase_mamba2(device, max_err):
     from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
     from repro_torch.models import lm, ssm
     from repro_torch.models import model as M
+    from repro_torch.obs.timing import device_ms
     from repro_torch.serve.serve_step import generate, pad_cache
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("f32 matmuls must not run in TF32 here")
@@ -734,14 +753,15 @@ def phase_mamba2(device, max_err):
     # the main path's dtype: its error is the kernels line's max_abs_err
     max_err["ssd_chunk"] = max(err[torch.float32], ssd_check(
         ssd_chunk_kernel(*args), ssd_chunk_ref(*args), "ssd_chunk/layer 0"))
-    ms = cuda_ms(lambda: ssd_chunk_kernel(*args), REPS)
-    plain = cuda_ms(lambda: ssd_chunk_ref(*args), REPS)
+    ms = device_ms(lambda: ssd_chunk_kernel(*args))
+    call = call_ms(lambda: ssd_chunk_kernel(*args))
+    plain = device_ms(lambda: ssd_chunk_ref(*args))
     bound, by, byte_ms, flop_ms = ssd_bound(g, L, n, p,
                                             args[0].element_size())
     low = float(torch.cumsum(args[3], 1).min())
     say(f"phase 7: ssd_chunk on layer 0's inputs: G={g}, L={L}, N={n}, "
-        f"P={p}, {args[0].dtype}, cumsum(a) down to {low:.1f}; median of "
-        f"{REPS}: kernel {ms:.4f} ms  plain {plain:.4f} ms  bound "
+        f"P={p}, {args[0].dtype}, cumsum(a) down to {low:.1f}: kernel "
+        f"device {ms:.4f} ms, call {call:.4f} ms  plain {plain:.4f} ms  bound "
         f"{bound:.4f} ms by {by} (bytes G(2LN + 2LP)e + 4GL over 3.35 TB/s "
         f"= {byte_ms:.4f} ms; G L(L+1)/2 (N + P) 2 FLOPs over 67 TFLOP/s = "
         f"{flop_ms:.4f} ms); {cfg.num_layers} x kernel / prefill = "
@@ -783,8 +803,8 @@ def phase_mamba2(device, max_err):
                             ("ssm_apply vs ssm_ref", d_ref, 1e-4)):
         if not d <= bound_:
             raise AssertionError(f"phase 7 oracle {what}: {d} > {bound_}")
-    return launches, dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                          bound_by=by, library_ms=None)
+    return launches, dict(ms=ms, call_ms=call, plain_ms=plain,
+                          bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def main() -> int:
@@ -857,6 +877,7 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src_path,
                     replaces=replaces, launches=launches[name],
                     max_abs_err=max_err[name], ms=times[name]["ms"],
+                    call_ms=times[name]["call_ms"],
                     plain_ms=times[name]["plain_ms"],
                     bound_ms=times[name]["bound_ms"],
                     bound_by=times[name]["bound_by"],

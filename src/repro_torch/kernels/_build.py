@@ -85,6 +85,7 @@ def build(names=SOURCES) -> dict[str, str]:
                 failed.append(f"nvcc failed for {name}.cu:\n{log}")
                 continue
             os.replace(tmp, out)
+            out.with_suffix(".ptxas.txt").write_text(log)
             reports[name] = log
     finally:
         for proc, _, _ in procs.values():
@@ -94,6 +95,13 @@ def build(names=SOURCES) -> dict[str, str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return reports
+
+
+def ptxas_report(name: str) -> str:
+    """What ``-Xptxas -v`` said when ``csrc/<name>.cu`` was built: each
+    kernel's registers, shared memory and spills.  Builds it if needed."""
+    build((name,))
+    return _target(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -12,9 +12,12 @@ A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.coarse_commit_ref`); a CUDA tensor goes
 to the hand-written kernel ``csrc/coarse_commit.cu``, which launches on
 the current stream, does not synchronise and allocates nothing (this
-wrapper allocates the output, the rank scratch and the counter).  The
-kernel's conflict count sorts each tile in shared memory, so with
-``stats=True`` it takes ``tile_m`` up to :data:`MAX_STATS_TILE`.
+wrapper allocates the output, the rank scratch for ``first`` and the
+counter for ``stats=True``, and nothing else).  The kernel combines
+messages to one target in a shared-memory table of each CTA before they
+reach device memory (``csrc/commit_tiles.cuh``).  Its conflict count sorts
+each tile in shared memory, so with ``stats=True`` it takes ``tile_m``
+up to :data:`MAX_STATS_TILE`.
 """
 from __future__ import annotations
 
@@ -58,6 +61,24 @@ def check_cuda_inputs(state, val, int_arrays, *, tile_m: int, stats: bool):
                          f"kernel's shared-memory limit of {MAX_STATS_TILE}")
 
 
+def scratch(state, op: str, stats: bool):
+    """(out, rank, conflicts) for a kernel call: the output; the rank
+    scratch only for ``first``; the conflict counter, zeroed, only with
+    ``stats`` (``None`` where unused, so no fill is launched for it)."""
+    out = torch.empty_like(state)
+    rank = (torch.empty(state.shape[0], dtype=torch.int32,
+                        device=state.device) if op == "first" else None)
+    conflicts = (torch.zeros(1, dtype=torch.int32, device=state.device)
+                 if stats else None)
+    return out, rank, conflicts
+
+
+def pointer(t):
+    """``t``'s device pointer, or ``None`` (a null pointer) for no
+    tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def coarse_commit_kernel(state, idx, val, *, op: str = "min",
                          tile_m: int = 256, block_v: int = 512,
                          stats: bool = False):
@@ -77,16 +98,12 @@ def coarse_commit_kernel(state, idx, val, *, op: str = "min",
         raise ValueError(f"no kernel for device {state.device}")
     check_cuda_inputs(state, val, [("idx", idx)], tile_m=tile_m, stats=stats)
     v, n = state.shape[0], idx.shape[0]
-    out = torch.empty_like(state)
-    rank = torch.empty(v if op == "first" else 0, dtype=torch.int32,
-                       device=state.device)
-    conflicts = torch.zeros(1, dtype=torch.int32, device=state.device)
+    out, rank, conflicts = scratch(state, op, stats)
     lib = _build.load("coarse_commit")
     err = lib.aam_coarse_commit(
         out.data_ptr(), state.data_ptr(), idx.data_ptr(), val.data_ptr(),
-        rank.data_ptr() or None, conflicts.data_ptr(), n, v,
-        -(-v // block_v) * block_v, OPS.index(op), _DTYPES[state.dtype],
-        tile_m, int(stats),
+        pointer(rank), pointer(conflicts), n, v, -(-v // block_v) * block_v,
+        OPS.index(op), _DTYPES[state.dtype], tile_m, int(stats),
         torch.cuda.current_stream(state.device).cuda_stream)
     _build.check(lib, err, "coarse_commit")
     coarse_commit_kernel.launches += 1

@@ -7,15 +7,21 @@
 // stats also counts the messages whose target occurs more than once in
 // their tile.
 //
-// What bounds it on an H100: bytes.  One pass reads idx and val and copies
-// the state: about 8N + 8V bytes, against a few integer operations per
-// message.  `first` adds a V-entry rank scratch (8V more) and a second read
-// of idx, val and rank; stats re-reads nothing but sorts 8-byte
-// (tile, key) pairs in shared memory.  The design keeps to that traffic:
-// no one-hot, no sort in device memory, one coalesced read of each message
-// array, one global atomic per message, and atomics to a target that a
-// stale read already shows cannot change are skipped (the hot vertices of
-// a skewed graph).  See commit_tiles.cuh for the passes.
+// What bounds it on an H100: global atomics.  The byte bound is about
+// 8N + 8V bytes (one read of idx and val, the state copied), 0.157 ms on
+// the scale-21 PageRank batch (N = 63.5 M); the card reads those bytes in
+// 0.18 ms.  One global atomic per message, the design of the first port,
+// ran at 73 G messages/s, 0.87 ms, and the same batch with uniform
+// targets at 79 G/s: the rate at which L2 takes scattered 4-byte atomics.
+// Sorted targets were slower still (1.23 ms): atomics to one address
+// serialise at their L2 slice.  (commit_profile, NVIDIA H100 80GB HBM3,
+// 700 W.)  So the design sends fewer atomics to L2: each CTA combines the
+// messages of its span in a shared-memory table and flushes one atomic
+// per key it holds, merges messages that share a key in registers first
+// (a run of sorted targets), and skips what a stale read shows cannot
+// change the state.  A CTA's span still holds too many distinct targets
+// for its table, so most messages of a skewed graph still reach L2; see
+// commit_tiles.cuh for the passes.
 //
 // As in the Pallas kernel, conflicts count targets below the state length
 // padded to block_v (count_bound), while only targets below V commit.
@@ -24,14 +30,15 @@
 namespace aam_coarse {
 
 struct CoarseKeys {
-  const int* idx;
+  const int* primary;  // idx
+  const int* lanes;    // null
   int v;
   int count_bound;
-  __device__ int key(long long i, bool& apply, bool& count) const {
-    const int k = idx[i];
-    apply = k >= 0 && k < v;
-    count = k >= 0 && k < count_bound;
-    return k;
+  __device__ void bind() {}
+  __device__ int key(int t, int, bool& apply, bool& count) const {
+    apply = t >= 0 && t < v;
+    count = t >= 0 && t < count_bound;
+    return t;
   }
 };
 
@@ -42,7 +49,8 @@ extern "C" int aam_coarse_commit(void* out, const void* state, const void* idx,
                                  long long n, int v, int count_bound, int op,
                                  int dtype, int tile_m, int stats,
                                  void* stream) {
-  aam_coarse::CoarseKeys keys{static_cast<const int*>(idx), v, count_bound};
+  aam_coarse::CoarseKeys keys{static_cast<const int*>(idx), nullptr, v,
+                              count_bound};
   return aam::launch(keys, op, dtype, state, val, out, rank, conflicts, n, v,
                      tile_m, stats, stream);
 }

@@ -9,32 +9,29 @@
 // there are lanes.  `base` is read from device memory, so one compiled
 // kernel serves every shard.
 //
-// What bounds it on an H100: bytes, as for the coarse commit: about
-// 8N + 8V for one pass (12N with lane ids), more for `first` (rank scratch)
-// and stats (shared-memory sort).  The key arithmetic is a few integer
-// operations per message, so fusing it costs nothing against the memory
-// traffic it saves the caller (no key array is written and read back).
-// A CTA whose messages are all invalid skips its conflict sort after one
-// __syncthreads_or -- the CUDA form of the Pallas kernel's tile skip.
+// What bounds it on an H100: global atomics, as for the coarse commit
+// (coarse_commit.cu), on the same design: per-CTA shared-memory tables
+// combine messages to one key before they reach L2.  The byte bound is
+// about 8N + 8V bytes for one pass (12N with lane ids), more for `first`
+// (rank scratch) and stats (a second read of the keys).  The key
+// arithmetic is a few integer operations per message, so fusing it costs
+// nothing against the memory traffic it saves the caller (no key array is
+// written and read back).
 #include "commit_tiles.cuh"
 
 namespace aam_fused {
 
 struct FusedKeys {
-  const int* tgt;
-  const int* lane;  // null when width == 1
-  const int* base;  // null = 0
+  const int* primary;    // tgt
+  const int* lanes;      // null when width == 1
+  const int* base_ptr;   // null = 0
   int nrows;
   int width;
-  __device__ int key(long long i, bool& apply, bool& count) const {
-    const int t = tgt[i];
-    const int rel = t - (base ? *base : 0);
-    bool ok = t >= 0 && rel >= 0 && rel < nrows;
-    int l = 0;
-    if (lane) {
-      l = lane[i];
-      ok = ok && l >= 0 && l < width;
-    }
+  int base;              // *base_ptr, read by bind()
+  __device__ void bind() { base = base_ptr ? *base_ptr : 0; }
+  __device__ int key(int t, int l, bool& apply, bool& count) const {
+    const int rel = t - base;
+    const bool ok = t >= 0 && rel >= 0 && rel < nrows && l >= 0 && l < width;
     apply = count = ok;
     return ok ? rel * width + l : 0;
   }
@@ -51,7 +48,7 @@ extern "C" int aam_fused_route_commit(void* out, const void* state,
                                       void* stream) {
   aam_fused::FusedKeys keys{static_cast<const int*>(tgt),
                             static_cast<const int*>(lane),
-                            static_cast<const int*>(base), nrows, width};
+                            static_cast<const int*>(base), nrows, width, 0};
   return aam::launch(keys, op, dtype, state, val, out, rank, conflicts, n, v,
                      tile_m, stats, stream);
 }

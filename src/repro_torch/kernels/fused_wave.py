@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.coarse_commit import (_DTYPES, check_args,
-                                               check_cuda_inputs)
+                                               check_cuda_inputs, pointer,
+                                               scratch)
 from repro_torch.kernels.ref import OPS, fused_route_commit_ref
 
 
@@ -55,18 +56,13 @@ def fused_route_commit_kernel(state, tgt, val, *, lane=None, base=None,
                              f"{tuple(base.shape)}")
         base = base.reshape(1).contiguous()
     check_cuda_inputs(state, val, ints, tile_m=tile_m, stats=stats)
-    out = torch.empty_like(state)
-    rank = torch.empty(v if op == "first" else 0, dtype=torch.int32,
-                       device=state.device)
-    conflicts = torch.zeros(1, dtype=torch.int32, device=state.device)
+    out, rank, conflicts = scratch(state, op, stats)
     lib = _build.load("fused_wave")
     err = lib.aam_fused_route_commit(
         out.data_ptr(), state.data_ptr(), tgt.data_ptr(), val.data_ptr(),
-        lane.data_ptr() if lane is not None else None,
-        base.data_ptr() if base is not None else None,
-        rank.data_ptr() or None, conflicts.data_ptr(), n, v, v // width,
-        width, OPS.index(op), _DTYPES[state.dtype], tile_m, int(stats),
-        torch.cuda.current_stream(state.device).cuda_stream)
+        pointer(lane), pointer(base), pointer(rank), pointer(conflicts), n,
+        v, v // width, width, OPS.index(op), _DTYPES[state.dtype], tile_m,
+        int(stats), torch.cuda.current_stream(state.device).cuda_stream)
     _build.check(lib, err, "fused_route_commit")
     fused_route_commit_kernel.launches += 1
     return (out, conflicts[0]) if stats else out

@@ -1,2 +1,3 @@
 """Measurement tools of the PyTorch port (``round_profile``,
-``serve_profile``)."""
+``serve_profile``, ``commit_profile``) and their device timer
+(``timing``)."""

@@ -299,3 +299,191 @@ def test_mamba2_kernel_path_matches_plain_path(cuda, dtype):
         logits, cache = M.decode_step(cfg, rcfgs[False], model, cache,
                                       pt[:, i:i + 1], s + i)
     assert i > 0, "the first step was already a near-tie"
+
+
+def _commit_cases(state, idx, val, lane=None, base=None, width=1):
+    """(kernel, plain, args, kw) of both commit kernels on one batch: the
+    coarse kernel on ``idx``, the fused kernel on ``idx`` as global ids
+    (with ``lane``, ``base`` and ``width`` when given)."""
+    fused_kw = {} if lane is None else dict(lane=lane, base=base,
+                                            width=width)
+    return [(coarse_commit_kernel, ref.coarse_commit_ref, (state, idx, val),
+             dict(block_v=512)),
+            (fused_route_commit_kernel, ref.fused_route_commit_ref,
+             (state, idx, val), fused_kw)]
+
+
+def _check_commit(state, idx, val, op, stats=False, **fused):
+    for kernel, plain, args, kw in _commit_cases(state, idx, val, **fused):
+        before = kernel.launches
+        got = kernel(*args, op=op, stats=stats, **kw)
+        exp = plain(*args, op=op, stats=stats, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        if stats:
+            (got, got_c), (exp, exp_c) = got, exp
+            assert int(got_c) == int(exp_c)
+        _assert_state(op, got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dt", OPS_TYPES,
+                         ids=[f"{o}-{str(d)[6:]}" for o, d in OPS_TYPES])
+def test_commit_all_messages_to_one_target(cuda, op, dt):
+    """The hottest case: 600,000 messages (several CTAs) to one slot: each
+    warp merges its messages, and one table slot of each CTA combines
+    them."""
+    gen = torch.Generator().manual_seed(11)
+    state, val = _inputs(op, dt, 4096, 600_000, gen, cuda)
+    if op == "first":
+        state[1234] = -1
+    idx = torch.full((600_000,), 1234, dtype=torch.int32, device=cuda)
+    _check_commit(state, idx, val, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dt", OPS_TYPES,
+                         ids=[f"{o}-{str(d)[6:]}" for o, d in OPS_TYPES])
+def test_commit_more_keys_than_table_slots(cuda, op, dt):
+    """2**20 messages over 2**21 targets: more distinct keys in a
+    CTA's span than its table has slots, so most go to device memory
+    directly; a quarter go to 64 hot targets."""
+    gen = torch.Generator().manual_seed(12)
+    v, n = 1 << 21, 1 << 20
+    state, val = _inputs(op, dt, v, n, gen, cuda)
+    idx = torch.randint(0, v, (n,), generator=gen)
+    idx[::4] = torch.randint(0, 64, (n // 4,), generator=gen)
+    _check_commit(state, idx.to(torch.int32).to(cuda), val, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+def test_first_lowest_index_wins_across_ctas(cuda, stats):
+    """Each of 1000 targets gets messages from every part of a 2,000,000
+    message batch (every CTA of the grid): the lowest index
+    wins, whatever span it lies in."""
+    gen = torch.Generator().manual_seed(13)
+    n = 2_000_000
+    state, val = _inputs("first", torch.int32, 1000, n, gen, cuda)
+    idx = (torch.randperm(n, generator=gen) % 1000).to(torch.int32)
+    _check_commit(state, idx.to(cuda), val, "first", stats=stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 1), (1, 0), (0, 3), (2, 2)],
+                         ids=["idx1-val1", "idx1-val0", "idx0-val3",
+                              "idx2-val2"])
+@pytest.mark.parametrize("op", ["min", "add", "first"])
+def test_commit_on_unaligned_slices(cuda, op, offsets):
+    """Message arrays that start 1-3 elements past a 16-byte boundary, at
+    the same offset (a scalar head, then 16-byte loads) or at different
+    ones (scalar loads throughout)."""
+    gen = torch.Generator().manual_seed(14 + sum(offsets))
+    v, n = 5000, 300_001
+    oi, ov = offsets
+    state, val = _inputs(op, torch.float32, v, n + ov, gen, cuda)
+    raw = torch.randint(-1, v + 10, (n + oi,), generator=gen).to(
+        torch.int32).to(cuda)
+    lane = torch.randint(0, 4, (n + oi,), generator=gen).to(
+        torch.int32).to(cuda)
+    idx, g_tgt, lane, val = raw[oi:], (raw + 200)[oi:], lane[oi:], val[ov:]
+    assert idx.data_ptr() % 16 == 4 * oi and val.data_ptr() % 16 == 4 * ov
+    _check_commit(state, idx, val, op)
+    _check_commit(state[:4000], g_tgt, val, op, lane=lane, base=200,
+                  width=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 4099])
+@pytest.mark.parametrize("op,dt", OPS_TYPES,
+                         ids=[f"{o}-{str(d)[6:]}" for o, d in OPS_TYPES])
+def test_commit_small_batches(cuda, op, dt, n):
+    """N = 1 and N not a multiple of 4: the scalar tail alone."""
+    gen = torch.Generator().manual_seed(15 + n)
+    state, val = _inputs(op, dt, 64, n, gen, cuda)
+    idx = torch.randint(-1, 70, (n,), generator=gen).to(torch.int32).to(cuda)
+    _check_commit(state, idx, val, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dt", OPS_TYPES,
+                         ids=[f"{o}-{str(d)[6:]}" for o, d in OPS_TYPES])
+def test_fused_width4_with_device_base(cuda, op, dt):
+    """The engine's lane layout: key (tgt - base) * 4 + lane, ``base`` a
+    device scalar, targets of other shards and bad lanes dropped."""
+    gen = torch.Generator().manual_seed(16)
+    rows, n, base = 30_000, 400_000, 70_000
+    state, val = _inputs(op, dt, rows * 4, n, gen, cuda)
+    tgt = torch.randint(base - 1000, base + rows + 1000, (n,), generator=gen)
+    tgt[: n // 8] = -1
+    lane = torch.randint(-1, 5, (n,), generator=gen).to(torch.int32)
+    base_t = torch.tensor(base, dtype=torch.int32, device=cuda)
+    got = fused_route_commit_kernel(state, tgt.to(torch.int32).to(cuda), val,
+                                    lane=lane.to(cuda), base=base_t, width=4,
+                                    op=op)
+    exp = ref.fused_route_commit_ref(state, tgt.to(torch.int32).to(cuda), val,
+                                     lane=lane.to(cuda), base=base_t,
+                                     width=4, op=op)
+    torch.cuda.synchronize()
+    _assert_state(op, got, exp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dt", OPS_TYPES,
+                         ids=[f"{o}-{str(d)[6:]}" for o, d in OPS_TYPES])
+def test_commit_on_sorted_targets(cuda, op, dt):
+    """Sorted targets, masked ones first: runs of one key from 1 to
+    thousands of messages, merged within a thread, across a warp whose
+    lanes all hold one key, or not at all where a run ends."""
+    gen = torch.Generator().manual_seed(17)
+    v, n = 100_000, 1_000_000
+    state, val = _inputs(op, dt, v, n, gen, cuda)
+    idx = torch.randint(-1, v, (n,), generator=gen)
+    idx[::3] = torch.randint(0, 100, (idx[::3].shape[0],), generator=gen)
+    idx = torch.sort(idx).values.to(torch.int32).to(cuda)
+    _check_commit(state, idx, val, op)
+    _check_commit(state, idx, val, op, stats=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dt", OPS_TYPES,
+                         ids=[f"{o}-{str(d)[6:]}" for o, d in OPS_TYPES])
+def test_commit_at_full_size(cuda, op, dt):
+    """V = 2**21, N = 2**26 with the Graph500 in-degree skew (each id bit
+    1 with probability 0.24) and a tenth of the messages masked."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    v, n = 1 << 21, 1 << 26
+    key = torch.zeros(n, dtype=torch.int64, device=cuda)
+    for _ in range(21):
+        key = key * 2 + (torch.rand(n, generator=gen, device=cuda)
+                         < 0.24).long()
+    idx = torch.randperm(v, generator=gen, device=cuda)[key]
+    idx = torch.where(torch.rand(n, generator=gen, device=cuda) < 0.1, -1,
+                      idx).to(torch.int32)
+    del key
+    state, val = _inputs(op, dt, v, n, torch.Generator().manual_seed(19),
+                         cuda)
+    _check_commit(state, idx, val, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "add"])
+def test_commit_without_stats_launches_no_fill(cuda, op):
+    """A ``stats=False`` commit launches the state copy and the commit
+    kernel and nothing else: no fill of an unused conflict counter."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(20)
+    state, val = _inputs(op, torch.int32, 5000, 100_000, gen, cuda)
+    idx = torch.randint(0, 5000, (100_000,), generator=gen).to(
+        torch.int32).to(cuda)
+    for kernel, _, args, kw in _commit_cases(state, idx, val):
+        kernel(*args, op=op, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernel(*args, op=op, **kw)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type.name == "CUDA"]
+        assert any("commit_span" in k for k in names), names
+        assert not [k for k in names if "fill" in k.lower()
+                    or "commit_span" not in k and "Memcpy" not in k], names
