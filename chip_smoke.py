@@ -40,7 +40,8 @@ Phases, one or more lines each:
    tokens (the SSD kernel once per layer), the prefill and decode times;
    the SSD kernel against its plain version over chunk length x (N, P) x
    f32/bf16 with cumsum(a) falling to -250 over a chunk, then timed
-   beside it on layer 0's own inputs; on-card oracles in f32: the kernel
+   beside it on layer 0's own inputs, in f32 and cast to bf16; on-card
+   oracles in f32: the kernel
    path's logits against the einsum path's, S - k prefill + k decode
    steps against an S prefill, and ``ssm_apply`` against the sequential
    ``ssm_ref``.
@@ -766,6 +767,15 @@ def phase_mamba2(device, max_err):
         f"= {byte_ms:.4f} ms; G L(L+1)/2 (N + P) 2 FLOPs over 67 TFLOP/s = "
         f"{flop_ms:.4f} ms); {cfg.num_layers} x kernel / prefill = "
         f"{cfg.num_layers * ms / pre_ms:.3f}")
+    # the same cells in bf16 (C, B, x cast; a stays f32)
+    bf16_args = [t.to(torch.bfloat16) for t in args[:3]] + [args[3]]
+    ssd_check(ssd_chunk_kernel(*bf16_args), ssd_chunk_ref(*bf16_args),
+              "ssd_chunk/layer 0/bf16")
+    ms_bf16 = device_ms(lambda: ssd_chunk_kernel(*bf16_args))
+    bound_bf16 = ssd_bound(g, L, n, p, 2)[0]
+    say(f"phase 7: ssd_chunk on layer 0's inputs cast to bf16: kernel device "
+        f"{ms_bf16:.4f} ms, bound {bound_bf16:.4f} ms by bytes")
+    del bf16_args
     say("phase 7: library_ms for ssd_chunk is null: no one PyTorch call "
         "computes the masked, decayed C B^T x of a chunk")
     del seen, args, cache, logits

@@ -7,14 +7,15 @@ called by :func:`repro_torch.models.ssm.ssm_apply` when ``use_pallas``.
 
 A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.ssd_chunk_ref`); a CUDA tensor goes to the
-hand-written kernel ``csrc/ssd_chunk.cu`` (one CTA per cell, the L x L
-matrix in shared memory), which launches on the current stream and does
-not synchronise.  Both take ``cumsum(a)`` in f64 and round it to f32, so
-they form the same decays.  The kernel takes C, B and x of one dtype, f32
-or bf16, ``a`` in f32, chunks of 1 to :data:`MAX_L` rows and cells whose
-L x L matrix, x and cumsum fit in the shared memory the card lets one CTA
-opt in to (the source checks that and the wrapper raises); it has no
-backward.
+hand-written kernel ``csrc/ssd_chunk.cu`` (tensor cores in 3xTF32, a
+persistent grid streaming C and B through shared memory, the L x L matrix
+in registers), which launches on the current stream and does not
+synchronise.  Both take ``cumsum(a)`` in f64 and round it to f32, so they
+form the same decays.  The kernel takes C, B and x of one dtype, f32 or
+bf16, ``a`` in f32, chunks of 1 to :data:`MAX_L` rows and cells whose
+staged columns of C and B, x and cumsum fit in the shared memory the card
+lets one CTA opt in to (the source checks that and the wrapper raises); it
+has no backward.
 """
 from __future__ import annotations
 

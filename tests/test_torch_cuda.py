@@ -255,6 +255,80 @@ def test_ssd_chunk_rejects_what_it_does_not_take(cuda):
         ssd_chunk_kernel(C.requires_grad_(), B, x, a)
 
 
+def _ssd_against_plain(args, dtype):
+    before = ssd_chunk_kernel.launches
+    got = ssd_chunk_kernel(*args)
+    exp = ref.ssd_chunk_ref(*args)
+    torch.cuda.synchronize()
+    assert ssd_chunk_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == exp.shape
+    assert torch.isfinite(got).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, exp, atol=1e-4, rtol=1e-3)
+    else:
+        torch.testing.assert_close(got.float(), exp.float(), atol=1e-2,
+                                   rtol=1e-2)
+
+
+SSD_DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                     ids=["f32", "bf16"])
+
+
+@pytest.mark.cuda
+@SSD_DTYPES
+@pytest.mark.parametrize("n,p", [(20, 24), (1, 1), (3, 5), (128, 72),
+                                 (40, 64)])
+@pytest.mark.parametrize("L", [17, 128])
+def test_ssd_chunk_widths_off_the_vector_grid(cuda, L, n, p, dtype):
+    """N and P that are not multiples of 4 (f32) or 8 (bf16) take scalar
+    loads; P past one 64-column pass of S x takes a second pass."""
+    gen = torch.Generator().manual_seed(L + 31 * n + p)
+    _ssd_against_plain(ssd_inputs(40, L, n, p, dtype, gen, cuda), dtype)
+
+
+@pytest.mark.cuda
+@SSD_DTYPES
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ssd_chunk_bases_at_element_offsets(cuda, offset, dtype):
+    """Each input a contiguous slice of a larger buffer, starting
+    ``offset`` elements in (so not 16-byte aligned), at layer 0's
+    widths."""
+    g, L, n, p = 24, 128, 128, 64
+    gen = torch.Generator().manual_seed(offset)
+    args = []
+    for t in ssd_inputs(g, L, n, p, dtype, gen, cuda):
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=cuda)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        args.append(view)
+    _ssd_against_plain(args, dtype)
+
+
+@pytest.mark.cuda
+@SSD_DTYPES
+@pytest.mark.parametrize("g", [1, 100, 1001])
+def test_ssd_chunk_cell_counts_against_the_persistent_grid(cuda, g, dtype):
+    """One cell, fewer cells than the persistent grid has CTAs (132 SMs,
+    two or more CTAs each), and a count that is not a multiple of it."""
+    gen = torch.Generator().manual_seed(g)
+    _ssd_against_plain(ssd_inputs(g, 128, 128, 64, dtype, gen, cuda), dtype)
+
+
+@pytest.mark.cuda
+@SSD_DTYPES
+@pytest.mark.parametrize("n,p", [(128, 64), (16, 16)])
+@pytest.mark.parametrize("L", [1, 17, 128])
+def test_ssd_chunk_deep_decays(cuda, L, n, p, dtype):
+    """cumsum(a) falls to about -250 over the chunk (``ssd_inputs``), so
+    most decays underflow and the masked ones would overflow."""
+    gen = torch.Generator().manual_seed(7 * L + n)
+    args = ssd_inputs(300, L, n, p, dtype, gen, cuda)
+    if L > 1:
+        assert float(torch.cumsum(args[3], 1)[:, -1].mean()) < -200
+    _ssd_against_plain(args, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mamba2_kernel_path_matches_plain_path(cuda, dtype):

@@ -94,3 +94,87 @@ def test_ssd_chunk_rejects_mismatched_shapes():
         ssd_chunk_kernel(C, B[:, :4], x, a)
     with pytest.raises(ValueError, match="shapes"):
         ssd_chunk_kernel(C, B, x, a[:1])
+
+
+# --- the CUDA kernel's arithmetic, emulated on the CPU ----------------------
+#
+# csrc/ssd_chunk.cu forms both products on the tensor cores in 3xTF32: each
+# f32 operand v is split into big = v rounded to TF32 (10 mantissa bits,
+# nearest, ties away from zero: cvt.rna.tf32.f32) and small = v - big, of
+# which the MMA reads the top 10 mantissa bits (it ignores the low 13 bits
+# of a TF32 operand); the product sums small.big + big.small + big.big in
+# f32 and drops small.small.  Products of TF32 values are exact in f32, so
+# f32 matmuls of the parts emulate the MMAs up to the order of the sums.
+
+
+def _tf32_rna(t):
+    """Round f32 to TF32, nearest with ties away from zero."""
+    u = t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def _tf32_trunc(t):
+    """What the tensor core reads of an f32 operand: the top 10 mantissa
+    bits."""
+    return (t.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(a, b, passes, small=_tf32_trunc):
+    if passes == 1:
+        return torch.bmm(_tf32_rna(a), _tf32_rna(b))
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = small(a - a_big), small(b - b_big)
+    return (torch.bmm(a_small, b_big) + torch.bmm(a_big, b_small)
+            + torch.bmm(a_big, b_big))
+
+
+def _ssd_in_tf32(C, B, x, a, passes, small=_tf32_trunc):
+    """The kernel's sequence: S = C B^T, the decays, then S x, each product
+    in ``passes`` TF32 passes (3: 3xTF32, 1: one TF32 product)."""
+    L = a.shape[-1]
+    cs = torch.cumsum(a.double(), -1).float()
+    tri = torch.ones(L, L, dtype=torch.bool).tril()
+    decay = torch.where(tri, torch.exp(cs[:, :, None] - cs[:, None, :]), 0.0)
+    S = _tf32_product(C, B.transpose(1, 2), passes, small) * decay
+    return _tf32_product(S, x, passes, small)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_ties_away():
+    one = 1.0 + 2.0 ** -10
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0e38,
+                      -0.0, 2.0 ** -130], dtype=torch.float32)
+    got = _tf32_rna(v)
+    want = torch.tensor([1.0, one, one, -one, 1.0, 3.0e38, -0.0, 2.0 ** -130],
+                        dtype=torch.float32)
+    assert torch.equal(got.view(torch.int32) & 0x1FFF,
+                       torch.zeros(8, dtype=torch.int32))
+    torch.testing.assert_close(got, want, rtol=2.0 ** -11, atol=0)
+    assert float(got[1]) == one and float(got[4]) == 1.0   # tie away, below
+    assert float(got[2]) == one and float(_tf32_trunc(v[2:3])) == 1.0
+
+
+@pytest.mark.parametrize("small", [_tf32_trunc, _tf32_rna],
+                         ids=["small-as-the-mma-reads-it", "small-rounded"])
+def test_three_tf32_passes_keep_the_f32_tolerance(small):
+    """At layer 0's widths (L 128, N 128, P 64) with cumsum(a) down to
+    about -250, 3xTF32 stays within the kernel's f32 tolerance (atol 1e-4,
+    rtol 1e-3) of the plain version and of the reference; one TF32 pass
+    misses it by far (about 80x on these inputs)."""
+    rng = np.random.default_rng(19)
+    g, L, n, p = 8, 128, 128, 64
+    C, B, x, a = _torch(*_inputs(g, L, n, p, seed=19))
+    a = torch.from_numpy((-rng.uniform(size=(g, L)) * 500.0 / L)
+                         .astype(np.float32))
+    assert float(torch.cumsum(a.double(), 1)[:, -1].mean()) < -200
+    plain = ssd_chunk_ref(C, B, x, a)
+    reference = torch.from_numpy(np.array(jax.vmap(jref.ssd_chunk_ref)(
+        *(jnp.asarray(t.numpy()) for t in (C, B, x, a)))))
+    three = _ssd_in_tf32(C, B, x, a, 3, small)
+    one = _ssd_in_tf32(C, B, x, a, 1)
+    for want in (plain, reference):
+        torch.testing.assert_close(three, want, atol=1e-4, rtol=1e-3)
+        excess = (one - want).abs() / (1e-4 + 1e-3 * want.abs())
+        assert float(excess.max()) > 10.0
