@@ -13,7 +13,8 @@ Phases, one or more lines each:
    bit-identical, float ``add`` within rtol 2e-4 / atol 1e-6, conflicts
    equal), then each checked against and timed beside its plain version
    on the main path's own message batch (f32 ``add``, f32 and int32
-   ``min``), and one ``scatter_reduce_`` call timed on it; the
+   ``min``, int32 ``or`` and ``first``), and one ``scatter_reduce_`` call
+   timed on it (none computes ``first``); the
    bucket-count kernel equal to its plain version
    over num_buckets x owner skew x masked share at N = 2**26 and at
    N = 0 and 1, then timed beside its plain version and
@@ -34,6 +35,21 @@ Phases, one or more lines each:
    ``distributed_multi_source_bfs`` with 4 lanes; distances equal phase
    4's bit for bit, each lane equals ``bfs`` from its source, ranks
    agree with phase 4's, every message is delivered;
+8. the graph slice, after phase 6 on the same graph: (a) st-connectivity
+   (from phase 4's source to a vertex at the largest BFS distance and to
+   an unreached one), Boman coloring (seed 0, a valid coloring) and
+   Boruvka (random weights, seed 0) on each of the four backends, equal
+   bit for bit; (b) on phase 5's scale-16 graph, against ``st_reference``,
+   ``validate_coloring`` and ``mst_reference`` (rtol 1e-5); (c) 4-lane
+   ``multi_source_stconn`` and ``multi_source_pagerank`` (5 iterations)
+   equal to the looped single queries; (d) 8 Kronecker scale-16 tenants
+   (seeds 0-7): the six ``batched_over_graphs_*``, each member equal to
+   its single-graph run, and the 4-lane ``distributed_product_bfs``; (e)
+   the wave engine at world size 1, capacity 2**24: the distributed
+   st-connectivity, coloring and Boruvka, 4-lane SSSP, PageRank and
+   st-connectivity, and the ``mesh=`` route of the six
+   ``batched_over_graphs_*``, each equal to (a), (c) or (d) with every
+   message delivered; (c)-(e) on ``pallas`` and ``fused``;
 7. Mamba2-780m at its published width (48 layers, d_model 1536, 48 SSD
    heads of 64, state 128), bf16 compute over f32 weights drawn on the
    card from a seed: ``generate()`` on 8 x 2048 prompt tokens + 32 greedy
@@ -46,10 +62,11 @@ Phases, one or more lines each:
    steps against an S prefill, and ``ssm_apply`` against the sequential
    ``ssm_ref``.
 
-Phases 4, 6 and 7 are the main path: each zeroes the kernels' launch
-counters before it and reads them after, and fails if a kernel of its
-path was not launched (phase 6: the bucket count, and the fused kernel
-with 4 lanes; phase 7: the SSD kernel once per layer).  Then one JSON
+Phases 4, 6, 8 and 7 (run in that order) are the main path: each zeroes
+the kernels' launch counters before it and reads them after, and fails
+if a kernel of its path was not launched (phase 6: the bucket count, and
+the fused kernel with 4 lanes; phase 8: both commit kernels and the
+bucket count; phase 7: the SSD kernel once per layer).  Then one JSON
 line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
 device ms per launch, from launches back to back; ``call_ms`` is one
 launch after a synchronise, what a caller pays per call) and, last, the
@@ -87,8 +104,10 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                   "src/repro/kernels/ssd_chunk.py:19"),
 }
 COUNT_BUCKETS = (1, 7, 8, 128, 1000, 65536)   # phase 3's bucket-count grid
-ENGINE_CAPACITY = 2 ** 24          # phase 6's coalescing factor C
-LANES = 4                          # phase 6's lane-batched BFS
+ENGINE_CAPACITY = 2 ** 24          # phases 6 and 8's coalescing factor C
+LANES = 4                          # phases 6 and 8's query lanes
+LANE_PPR_ITERS = 5                 # phase 8's lane PageRank iterations
+TENANTS = (8, 16)                  # phase 8's graph batch: count, scale
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
 MAMBA = "mamba2-780m"              # phase 7's model, at its published width
 PROMPT, NEW_TOKENS = (8, 2048), 32  # phase 7's batch x prompt, greedy tokens
@@ -269,13 +288,17 @@ def phase_kernel_times(g, device, max_err):
         f"plain version and scatter_reduce_, and the kernel's call ms "
         f"(one launch after a synchronise, median of {REPS}); bound = "
         f"(8N + 8V) bytes / 3.35 TB/s = {bound_ms:.4f} ms")
+    # `or` on 0/1 payloads is scatter_reduce_'s "amax"; no one PyTorch call
+    # computes `first` with its lowest-index tie-break
     for op, dtype, reduce in (("add", torch.float32, "sum"),
                               ("min", torch.float32, "amin"),
-                              ("min", torch.int32, "amin")):
+                              ("min", torch.int32, "amin"),
+                              ("or", torch.int32, "amax"),
+                              ("first", torch.int32, None)):
         state, val = grid_inputs(op, dtype, v, n, gen, device)
         buf = state.clone()
-        library = device_ms(lambda: buf.scatter_reduce_(
-            0, library_index, val, reduce))
+        library = None if reduce is None else device_ms(
+            lambda: buf.scatter_reduce_(0, library_index, val, reduce))
         for name, kernel, plain_fn in (
                 ("coarse_commit", coarse_commit_kernel,
                  ref.coarse_commit_ref),
@@ -291,9 +314,11 @@ def phase_kernel_times(g, device, max_err):
             plain = device_ms(lambda: plain_fn(state, idx, val, op=op))
             ms = device_ms(lambda: kernel(state, idx, val, op=op))
             call = call_ms(lambda: kernel(state, idx, val, op=op))
+            lib = ("scatter_reduce_ (none computes first)" if library is None
+                   else f"scatter_reduce_ {library:.4f} ms")
             say(f"  {name:19s} {op}/{str(dtype)[6:]:8s} kernel device "
                 f"{ms:.4f} ms, call {call:.4f} ms  plain {plain:.4f} ms  "
-                f"scatter_reduce_ {library:.4f} ms  bound {bound_ms:.4f} ms")
+                f"{lib}  bound {bound_ms:.4f} ms")
             if (op, dtype) == ("add", torch.float32):
                 out[name] = dict(ms=ms, call_ms=call, plain_ms=plain,
                                  library_ms=library, bound_ms=bound_ms,
@@ -590,6 +615,413 @@ def phase_engine(g, device, single):
     return launches
 
 
+def count_launches(fn):
+    """``fn()`` and the launches of the three graph kernels in it."""
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.kernels.coarse_commit import coarse_commit_kernel
+    from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+    kernels = {"coarse_commit": coarse_commit_kernel,
+               "fused_route_commit": fused_route_commit_kernel,
+               "bucket_count": bucket_count_kernel}
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    return out, {name: k.launches for name, k in kernels.items()}
+
+
+def far_and_lone(dist):
+    """(a vertex at the largest finite BFS distance, the first vertex the
+    BFS did not reach, or -1 when it reached every vertex)."""
+    import torch
+    reached = dist < 2 ** 29
+    far = int(torch.argmax(torch.where(reached, dist, -1)))
+    lone = torch.nonzero(~reached)
+    return far, int(lone[0]) if len(lone) else -1
+
+
+def equal(what, got, exp):
+    """Raise unless two results (tensors, numbers, or tuples of them) are
+    equal bit for bit."""
+    import torch
+    if isinstance(exp, (tuple, list)):
+        if len(got) != len(exp):
+            raise AssertionError(f"{what}: {len(got)} outputs != {len(exp)}")
+        for i, (a, b) in enumerate(zip(got, exp)):
+            equal(f"{what}[{i}]", a, b)
+    elif isinstance(exp, torch.Tensor):
+        if not torch.equal(got.to(exp.device), exp):
+            raise AssertionError(f"{what}: differs")
+    elif got != exp:
+        raise AssertionError(f"{what}: {got!r} != {exp!r}")
+
+
+def close_ranks(what, got, exp, v):
+    """PageRank ranks scaled by V within rtol 2e-4 / atol 1e-6."""
+    import torch
+    torch.testing.assert_close(got * v, exp * v, rtol=ADD_RTOL,
+                               atol=ADD_ATOL, msg=lambda m: f"{what}: {m}")
+
+
+def phase8_single(g, gw, dist0):
+    """Phase 8a: st-connectivity, coloring and Boruvka on scale 21 on each
+    backend, equal across backends.  Returns the endpoints and the
+    ``pallas`` results."""
+    import torch
+    from repro_torch.core.commit import BACKENDS, CommitSpec
+    from repro_torch.graphs.algorithms.boruvka import boruvka
+    from repro_torch.graphs.algorithms.coloring import (coloring,
+                                                        validate_coloring)
+    from repro_torch.graphs.algorithms.stconn import st_connectivity
+    src = int(torch.argmax(g.degrees))
+    far, lone = far_and_lone(dist0)
+    if lone < 0:
+        raise AssertionError("the scale-21 BFS reached every vertex")
+    results = {}
+    for backend in BACKENDS:
+        spec = CommitSpec(backend=backend, stats=False)
+        torch.cuda.reset_peak_memory_stats()
+        (ff, rf), tf = timed(lambda: st_connectivity(g, src, far, spec=spec))
+        (fl, rl), tl = timed(lambda: st_connectivity(g, src, lone,
+                                                     spec=spec))
+        (color, rc, nc), tc = timed(lambda: coloring(g, seed=0, spec=spec))
+        (comp, w, ne, rb), tb = timed(lambda: boruvka(gw, spec=spec))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        results[backend] = ((bool(ff), rf, bool(fl), rl), (color, rc,
+                                                            bool(nc)),
+                            (comp, w, int(ne), rb))
+        say(f"phase 8a: {backend:6s} st_connectivity found={bool(ff)} in "
+            f"{rf} rounds {tf / rf * 1e3:.2f} ms/round, unreached target "
+            f"found={bool(fl)} in {rl} rounds {tl / rl * 1e3:.2f} ms/round; "
+            f"coloring {rc} rounds {tc / rc * 1e3:.2f} ms/round, "
+            f"{int(color.max()) + 1} colors; boruvka {rb} rounds "
+            f"{tb / rb * 1e3:.2f} ms/round, weight {float(w):.6f}, "
+            f"{int(ne)} edges; peak {peak:.2f} GiB")
+    base = results["atomic"]
+    for backend, res in results.items():
+        equal(f"phase 8a {backend} vs atomic", res, base)
+    (ff, _, fl, _), (color, _, nc), (comp, w, ne, _) = base
+    if not ff or fl:
+        raise AssertionError(f"st_connectivity: found {ff} for a reached "
+                             f"target, {fl} for an unreached one")
+    if nc or not validate_coloring(g, color):
+        raise AssertionError("coloring did not converge to a valid coloring")
+    if not (0 < ne < g.num_vertices and torch.isfinite(w)):
+        raise AssertionError(f"boruvka: {ne} edges, weight {float(w)}")
+    say(f"phase 8a: all four backends agree bit for bit (source {src}, "
+        f"reached target {far}, unreached {lone}); the coloring is valid")
+    return src, far, lone, results["pallas"]
+
+
+def phase8_oracles(small):
+    """Phase 8b: on scale 16 (phase 5's graph), st-connectivity against
+    ``st_reference``, coloring against ``validate_coloring`` and the MST
+    weight against ``mst_reference`` within rtol 1e-5."""
+    import torch
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.graphs.algorithms.boruvka import boruvka, mst_reference
+    from repro_torch.graphs.algorithms.coloring import (coloring,
+                                                        validate_coloring)
+    from repro_torch.graphs.algorithms.stconn import (st_connectivity,
+                                                      st_reference)
+    from repro_torch.graphs.generators import random_weights
+    src = int(torch.argmax(small.degrees))
+    far, lone = far_and_lone(bfs(small, src, spec=CommitSpec(
+        backend="pallas", stats=False)).dist)
+    ref = {t: st_reference(small, src, t) for t in (far, lone)}
+    sw = random_weights(small, seed=0)
+    mst = mst_reference(sw)
+    for backend in ("pallas", "fused"):
+        spec = CommitSpec(backend=backend, stats=False)
+        for t, exp in ref.items():
+            found, _ = st_connectivity(small, src, t, spec=spec)
+            if bool(found) != exp:
+                raise AssertionError(f"st_connectivity({backend}) to {t} != "
+                                     f"st_reference")
+        color, _, nc = coloring(small, seed=0, spec=spec)
+        if nc or not validate_coloring(small, color):
+            raise AssertionError(f"coloring({backend}) is not valid")
+        _, w, _, _ = boruvka(sw, spec=spec)
+        if abs(float(w) - mst) > 1e-5 * mst:
+            raise AssertionError(f"boruvka({backend}) weight {float(w)} != "
+                                 f"mst_reference {mst}")
+    say(f"phase 8b: on scale 16 (pallas, fused), st_connectivity equals "
+        f"st_reference ({ref}), the colorings are valid, the MST weight "
+        f"is within rtol 1e-5 of mst_reference ({mst:.6f})")
+
+
+def phase8_lanes(g, ss, ts):
+    """Phase 8c: 4-lane ``multi_source_stconn`` and
+    ``multi_source_pagerank`` on scale 21 equal the looped single-query
+    runs.  Returns the ``pallas`` results."""
+    import torch
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.pagerank import (
+        multi_source_pagerank, personalized_pagerank)
+    from repro_torch.graphs.algorithms.stconn import (multi_source_stconn,
+                                                      st_connectivity)
+    v = g.num_vertices
+    out = {}
+    for backend in ("pallas", "fused"):
+        spec = CommitSpec(backend=backend, stats=False)
+        torch.cuda.reset_peak_memory_stats()
+        (found, rounds), t_st = timed(lambda: multi_source_stconn(
+            g, ss, ts, spec=spec))
+        (rank, _), t_pr = timed(lambda: multi_source_pagerank(
+            g, ss, iters=LANE_PPR_ITERS, spec=spec))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loop = [bool(st_connectivity(g, s, t, spec=spec)[0])
+                for s, t in zip(ss, ts)]
+        if found.tolist() != loop:
+            raise AssertionError(f"multi_source_stconn ({backend}) "
+                                 f"{found.tolist()} != looped {loop}")
+        for lane, s in enumerate(ss):
+            one, _ = personalized_pagerank(g, s, iters=LANE_PPR_ITERS,
+                                           spec=spec)
+            close_ranks(f"multi_source_pagerank ({backend}) lane {lane}",
+                        rank[lane], one, v)
+        say(f"phase 8c: {backend:6s} multi_source_stconn L={len(ss)} "
+            f"found {found.tolist()} in {rounds} rounds "
+            f"{t_st / rounds * 1e3:.2f} ms/round; multi_source_pagerank "
+            f"L={len(ss)} {LANE_PPR_ITERS} iterations "
+            f"{t_pr / LANE_PPR_ITERS * 1e3:.2f} ms/iter; peak {peak:.2f} GiB;"
+            f" each lane equals its single-query run")
+        out[backend] = (found, rank)
+    return out["pallas"]
+
+
+def phase8_batch(device):
+    """Phase 8d: 8 Kronecker scale-16 tenants; the six
+    ``batched_over_graphs_*`` on ``pallas`` and ``fused``, each member
+    equal to its single-graph run, and the 4-lane
+    ``distributed_product_bfs`` on the set.  Returns (set, weighted set,
+    sources, targets, the ``pallas`` batched results)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms import (bfs, boruvka, coloring,
+                                               pagerank, sssp, stconn)
+    from repro_torch.graphs.csr import GraphSet
+    from repro_torch.graphs.generators import kronecker, random_weights
+    from repro_torch.launch.mesh import make_mesh
+    count, scale = TENANTS
+    t0 = time.perf_counter()
+    members = [kronecker(scale, 16, seed=i, device=device)
+               for i in range(count)]
+    wmembers = [random_weights(m, seed=i) for i, m in enumerate(members)]
+    gs, gws = GraphSet(members), GraphSet(wmembers)
+    say(f"phase 8d: {count} Kronecker scale-{scale} tenants (seeds 0-"
+        f"{count - 1}): V={gs.num_vertices} E={gs.num_edges} in the union, "
+        f"built on the host in {time.perf_counter() - t0:.1f} s")
+    srcs = [int(torch.argmax(m.degrees)) for m in members]
+    tgts = []
+    for i, m in enumerate(members):     # even tenants reachable, odd not
+        far, lone = far_and_lone(bfs.bfs(m, srcs[i]).dist)
+        tgts.append(far if i % 2 == 0 or lone < 0 else lone)
+    rng = np.random.default_rng(SEED + 8)
+    lanes = [srcs] + [[int(rng.integers(0, m.num_vertices)) for m in members]
+                      for _ in range(LANES - 1)]
+    mesh = make_mesh(device=device)
+    out = {}
+    for backend in ("pallas", "fused"):
+        spec = CommitSpec(backend=backend, stats=False)
+        runs = {
+            "bfs": lambda: bfs.batched_over_graphs_bfs(gs, srcs, spec=spec),
+            "sssp": lambda: sssp.batched_over_graphs_sssp(gws, srcs,
+                                                          spec=spec),
+            "pagerank": lambda: pagerank.batched_over_graphs_pagerank(
+                gs, srcs, spec=spec),
+            "stconn": lambda: stconn.batched_over_graphs_stconn(
+                gs, srcs, tgts, spec=spec),
+            "coloring": lambda: coloring.batched_over_graphs_coloring(
+                gs, spec=spec),
+            "boruvka": lambda: boruvka.batched_over_graphs_boruvka(
+                gws, spec=spec),
+        }
+        res, times = {}, {}
+        for name, run in runs.items():
+            res[name], times[name] = timed(run)
+        ones = {"bfs": [bfs.bfs(m, s, spec=spec).dist
+                        for m, s in zip(members, srcs)],
+                "sssp": [sssp.sssp(m, s, spec=spec)[0]
+                         for m, s in zip(wmembers, srcs)],
+                "stconn": torch.stack([stconn.st_connectivity(
+                    m, s, t, spec=spec)[0] for m, s, t in
+                    zip(members, srcs, tgts)]),
+                "coloring": [coloring.coloring(m, spec=spec)[0]
+                             for m in members],
+                "boruvka": [boruvka.boruvka(m, spec=spec)[:3]
+                            for m in wmembers]}
+        equal(f"batched bfs ({backend})", res["bfs"], ones["bfs"])
+        equal(f"batched sssp ({backend})", res["sssp"], ones["sssp"])
+        for i, (m, s) in enumerate(zip(members, srcs)):
+            close_ranks(f"batched pagerank ({backend}) tenant {i}",
+                        res["pagerank"][i], pagerank.personalized_pagerank(
+                            m, s, spec=spec)[0], m.num_vertices)
+        equal(f"batched stconn ({backend})", res["stconn"], ones["stconn"])
+        colors, _, nc = res["coloring"]
+        equal(f"batched coloring ({backend})", colors, ones["coloring"])
+        if nc.any():
+            raise AssertionError(f"batched coloring ({backend}) did not "
+                                 f"converge")
+        equal(f"batched boruvka ({backend})", res["boruvka"][0],
+              ones["boruvka"])
+        torch.cuda.reset_peak_memory_stats()
+        (dist, rounds, tel), t_pb = timed(lambda: bfs.distributed_product_bfs(
+            mesh, gs, lanes, capacity=ENGINE_CAPACITY, spec=spec,
+            telemetry=True))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if not tel.delivered_all:
+            raise AssertionError(f"distributed_product_bfs ({backend}): "
+                                 f"messages left undelivered")
+        for lane, row in enumerate(lanes):
+            equal(f"distributed_product_bfs ({backend}) lane {lane}",
+                  gs.split_vertex(dist[lane]),
+                  bfs.batched_over_graphs_bfs(gs, row, spec=spec))
+        say(f"phase 8d: {backend:6s} batched_over_graphs_* over "
+            f"{count} tenants, call ms: "
+            + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in times.items())
+            + f"; stconn found {res['stconn'].tolist()}; coloring "
+            f"{res['coloring'][1]} rounds, boruvka {res['boruvka'][1]} "
+            f"rounds; each member equals its single-graph run; "
+            f"distributed_product_bfs L={LANES} x G={count} {rounds} rounds "
+            f"{t_pb * 1e3:.1f} ms, {tel.subrounds / rounds:.2f} "
+            f"sub-rounds/round, peak {peak:.2f} GiB, each lane equals "
+            f"batched_over_graphs_bfs")
+        out[backend] = res
+    return gs, gws, srcs, tgts, out["pallas"]
+
+
+def phase8_engine(g, gw, device, single, lanes, batch):
+    """Phase 8e: the wave engine at world size 1, C = 2**24, on ``pallas``
+    and ``fused``: the distributed st-connectivity, coloring and Boruvka,
+    the 4-lane SSSP, PageRank and st-connectivity on scale 21, and the
+    ``mesh=`` route of the six ``batched_over_graphs_*`` on the tenant
+    set, each equal to phase 8a, 8c or 8d."""
+    import torch
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms import (boruvka, coloring, pagerank,
+                                               sssp, stconn)
+    from repro_torch.graphs.algorithms import bfs
+    from repro_torch.launch.mesh import make_mesh
+    src, far, lone, (st, col, mst) = single
+    ss, ts, (lane_found, lane_rank) = lanes
+    gs, gws, srcs, tgts, gb = batch
+    v = g.num_vertices
+    lane_sssp = [sssp.sssp(gw, s, spec=CommitSpec(backend="pallas",
+                                                  stats=False))[0]
+                 for s in ss]
+    mesh = make_mesh(device=device)
+    for backend in ("pallas", "fused"):
+        spec = CommitSpec(backend=backend, stats=False)
+        kw = dict(capacity=ENGINE_CAPACITY, spec=spec, telemetry=True)
+        runs = {
+            "stconn reached": lambda: stconn.distributed_stconn(
+                mesh, g, src, far, **kw),
+            "stconn unreached": lambda: stconn.distributed_stconn(
+                mesh, g, src, lone, **kw),
+            "coloring": lambda: coloring.distributed_coloring(mesh, g, **kw),
+            "boruvka": lambda: boruvka.distributed_boruvka(mesh, gw, **kw),
+            f"multi_sssp L={len(ss)}": lambda: (
+                sssp.distributed_multi_source_sssp(mesh, gw, ss, **kw)),
+            f"multi_ppr L={len(ss)}": lambda: (
+                pagerank.distributed_multi_source_pagerank(
+                    mesh, g, ss, iters=LANE_PPR_ITERS, **kw)),
+            f"multi_stconn L={len(ss)}": lambda: (
+                stconn.distributed_multi_source_stconn(mesh, g, ss, ts,
+                                                       **kw)),
+        }
+        exp = {"stconn reached": (st[0],), "stconn unreached": (st[2],),
+               "coloring": col, "boruvka": mst,
+               f"multi_sssp L={len(ss)}": (torch.stack(lane_sssp),),
+               f"multi_stconn L={len(ss)}": (lane_found,)}
+        for name, run in runs.items():
+            torch.cuda.reset_peak_memory_stats()
+            (*out, res), wall = timed(run)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            say(f"phase 8e: {backend:6s} {name:18s} {res.rounds} rounds, "
+                f"call {wall * 1e3:.1f} ms, {wall / res.rounds * 1e3:.2f} "
+                f"ms/round, {res.subrounds / res.rounds:.2f} sub-rounds/"
+                f"round, {wall / max(res.subrounds, 1) * 1e3:.2f} ms/"
+                f"sub-round, peak {peak:.2f} GiB, "
+                f"delivered_all={res.delivered_all}")
+            if not res.delivered_all:
+                raise AssertionError(f"phase 8e {backend} {name}: messages "
+                                     f"left undelivered")
+            if name.startswith("multi_ppr"):
+                close_ranks(f"distributed_multi_source_pagerank ({backend})",
+                            out[0], lane_rank, v)
+            elif name.startswith("stconn"):
+                equal(f"distributed_stconn ({backend}) {name}",
+                      (bool(out[0]),), exp[name])
+            elif name == "coloring":
+                equal(f"distributed_coloring ({backend})",
+                      (out[0], out[1], bool(out[2])), exp[name])
+            elif name == "boruvka":
+                equal(f"distributed_boruvka ({backend})",
+                      (out[0], out[1], int(out[2]), out[3]), exp[name])
+            else:
+                equal(f"{name} ({backend})", (out[0],), exp[name])
+        mkw = dict(mesh=mesh, capacity=ENGINE_CAPACITY, spec=spec)
+        routes = {
+            "bfs": lambda: bfs.batched_over_graphs_bfs(gs, srcs, **mkw),
+            "sssp": lambda: sssp.batched_over_graphs_sssp(gws, srcs, **mkw),
+            "pagerank": lambda: pagerank.batched_over_graphs_pagerank(
+                gs, srcs, **mkw),
+            "stconn": lambda: stconn.batched_over_graphs_stconn(
+                gs, srcs, tgts, **mkw),
+            "coloring": lambda: coloring.batched_over_graphs_coloring(
+                gs, **mkw),
+            "boruvka": lambda: boruvka.batched_over_graphs_boruvka(
+                gws, **mkw),
+        }
+        times = {}
+        for name, run in routes.items():
+            got, times[name] = timed(run)
+            if name == "pagerank":
+                for i, (a, b) in enumerate(zip(got, gb[name])):
+                    close_ranks(f"mesh route pagerank ({backend}) {i}", a, b,
+                                gs.vsizes[i])
+            else:
+                equal(f"mesh route {name} ({backend})", got, gb[name])
+        say(f"phase 8e: {backend:6s} the mesh= route of the six "
+            f"batched_over_graphs_* equals phase 8d; call ms: "
+            + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in times.items()))
+
+
+def phase_graph_slice(g, small, device, single):
+    """Phase 8: the slice's main path (st-connectivity, coloring, Boruvka,
+    the graph batch, the lane and engine forms).  Returns the three graph
+    kernels' launches in it."""
+    import numpy as np
+    import torch
+    from repro_torch.graphs.generators import random_weights
+    t0 = time.perf_counter()
+
+    def run():
+        bfs0 = single[0]
+        gw = random_weights(g, seed=0)
+        one = phase8_single(g, gw, bfs0.dist)
+        phase8_oracles(small)
+        src, far, lone, _ = one
+        rng = np.random.default_rng(SEED + 8)
+        others = rng.choice(np.flatnonzero(g.degrees.cpu().numpy() > 0),
+                            LANES - 1, replace=False)
+        ss = [src] + [int(x) for x in others]
+        ts = [far, lone, ss[2], int(rng.integers(0, g.num_vertices))]
+        lanes = (ss, ts, phase8_lanes(g, ss, ts))
+        batch = phase8_batch(device)
+        phase8_engine(g, gw, device, one, lanes, batch)
+    _, launches = count_launches(run)
+    torch.cuda.synchronize()
+    say(f"phase 8: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched in phase 8")
+    return launches
+
+
 def ssd_bound(g, L, n, p, elem):
     """The least time of the SSD chunk on the card, in ms, and what sets
     it: each input read and the output written once (C, B [G, L, N], x, y
@@ -878,10 +1310,11 @@ def main() -> int:
         "and pagerank x V agrees with pagerank_reference (float64)")
 
     engine_launches = phase_engine(g, device, single)
-    del g, single
+    slice_launches = phase_graph_slice(g, small, device, single)
+    del g, single, small
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
     launches = {name: launches.get(name, 0) + engine_launches.get(name, 0)
-                for name in KERNELS}
+                + slice_launches.get(name, 0) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
 
     kernels = [dict(name=name, route="cuda", source=src_path,

@@ -4,7 +4,7 @@ entry for entry, so a name means the same config in both packages.
 Each entry records the published config it was taken from.  Reduced smoke
 variants come from :func:`repro_torch.configs.base.smoke_model`.  The port
 runs ``family="ssm"`` (Mamba2) so far; the others raise
-``NotImplementedError`` when a model is built (ROADMAP Queue 1 item 11).
+``NotImplementedError`` when a model is built (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.coalescing import BucketPlan
 from repro_torch.core.messages import Messages
-from repro_torch.graphs.csr import Graph, graph_on
+from repro_torch.graphs.csr import Graph, GraphSet, graph_on
 
 
 def to_graph(indptr, src, dst, weights, num_vertices: int, *,
@@ -30,6 +30,13 @@ def to_graph(indptr, src, dst, weights, num_vertices: int, *,
                          f"{int(indptr[-1])}")
     return graph_on(indptr, src, dst, weights, num_vertices,
                     resolve_device(device))
+
+
+def to_graphset(members, *, device="cuda") -> GraphSet:
+    """A :class:`GraphSet` from a list of ``(indptr, src, dst, weights,
+    num_vertices)`` members, each as :func:`to_graph` takes it."""
+    device = resolve_device(device)
+    return GraphSet([to_graph(*m, device=device) for m in members])
 
 
 def to_messages(target, payload, valid=None, *, device="cuda") -> Messages:

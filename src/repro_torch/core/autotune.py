@@ -3,7 +3,7 @@
 Only the static-spec branch of ``repro.core.autotune.make_commit_step``
 is ported; the calibrating tuner (``backend="auto"``, the M ladder, the
 persistent cache) and the arguments that size its calibration are
-ROADMAP Queue 1 item 7.
+ROADMAP Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -12,10 +12,14 @@ import torch
 from repro_torch.core.commit import CommitSpec, commit
 
 
-def make_commit_step(spec: CommitSpec | None, op: str, state):
+def make_commit_step(spec: CommitSpec | None, op: str, state, msgs_like=None,
+                     *, n: int | None = None, axis_width: int = 1,
+                     label: str | None = None):
     """Returns ``(step, level0)`` where ``step(state, msgs, level) ->
     (CommitResult, level')``.  For a static spec the level is a dummy the
-    loop carries through unchanged."""
+    loop carries through unchanged.  ``msgs_like``, ``n``, ``axis_width``
+    and ``label`` size and name the tuner's calibration in the reference;
+    the static branch takes them and ignores them."""
     level0 = torch.zeros((), dtype=torch.int32, device=state.device)
 
     def step(state, msgs, level, _spec=spec):

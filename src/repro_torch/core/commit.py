@@ -24,11 +24,11 @@ Differences from :mod:`repro.core.commit`:
 * :class:`CommitSpec` has no ``interpret``: the tensors' device decides.
   On the CPU the kernel tiers run their kernels' plain versions; on a
   card they launch the CUDA kernels.
-* ``backend="auto"``, ``seed_m`` (ROADMAP Queue 1 item 7), ``sanitize``
-  and ``trace`` (Queue 1 item 9) raise ``NotImplementedError``, and the
+* ``backend="auto"``, ``seed_m`` (ROADMAP Queue 1 item 4), ``sanitize``
+  (item 7) and ``trace`` (item 5) raise ``NotImplementedError``, and the
   ``REPRO_SANITIZE``/``REPRO_TRACE`` switches are not read.
 * Payloads are [n] per message; vector payloads come with the LM stack
-  (Queue 1 item 11).  The kernel tiers cast the payload to the state's
+  (Queue 1 item 9).  The kernel tiers cast the payload to the state's
   dtype before the launch.
 * Valid messages must target ``[0, V)``: targets outside are dropped on
   every tier (JAX's scatter wraps negative ids instead).
@@ -101,11 +101,11 @@ class CommitSpec:
         if self.backend == AUTO or self.seed_m is not None:
             raise NotImplementedError(
                 "backend='auto' and seed_m come with the autotuner "
-                "(ROADMAP Queue 1 item 7)")
+                "(ROADMAP Queue 1 item 4)")
         if self.sanitize or self.trace:
             raise NotImplementedError(
                 "sanitize and trace come with observability and runtime "
-                "checks (ROADMAP Queue 1 item 9)")
+                "checks (ROADMAP Queue 1 items 5 and 7)")
 
 
 def _zero(device) -> torch.Tensor:
@@ -132,7 +132,7 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
     if state.dim() != 1 or msgs.payload.dim() != 1:
         raise NotImplementedError(
             "vector payloads come with the LM stack (ROADMAP Queue 1 "
-            "item 11)")
+            "item 9)")
     backend = spec.backend
     if backend in ("pallas", "fused") and not _pallas_supported(state, msgs,
                                                                 op):

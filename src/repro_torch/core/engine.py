@@ -29,10 +29,9 @@ This module mirrors :mod:`repro.core.engine`, with these differences:
   ``delivered_all`` a bool.
 * ``run_distributed`` runs single-shot.  These raise
   ``NotImplementedError``: ``snapshot_rounds``/``fault_injector``
-  (degraded mesh, ROADMAP Queue 1 item 6), a graph set (item 4),
-  ``REPRO_TRACE`` wave taps (item 9); ``CommitSpec`` itself refuses
-  ``backend="auto"`` (item 7) and ``trace`` (item 9).  The waverace
-  lint capture is not ported.
+  (degraded mesh, ROADMAP Queue 1 item 3), ``REPRO_TRACE`` wave taps
+  (item 5); ``CommitSpec`` itself refuses ``backend="auto"`` (item 4)
+  and ``trace`` (item 5).  The waverace lint capture is not ported.
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ from repro_torch.core.coalescing import (BucketPlan, fuse_keys,
                                          scatter_to_buckets)
 from repro_torch.core.messages import make_messages
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
-from repro_torch.graphs.csr import Graph, partition_tensors
+from repro_torch.graphs.csr import Graph, GraphSet, partition_tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -510,19 +509,26 @@ def run_distributed(alg: AlgorithmSpec, mesh, g, *,
     gathered from every rank.  ``capacity``/``m`` are the paper's C and
     M; ``capacity="auto"`` sizes C with :func:`auto_capacity`.  ``edges``
     takes a precomputed ``partition_edges(g, mesh.shape[axis])`` (numpy
-    arrays or tensors); ``batch`` is the run's default batch axis."""
+    arrays or tensors); ``batch`` is the run's default batch axis.
+
+    ``g`` may be a :class:`repro_torch.graphs.csr.GraphSet`: the run
+    executes over its disjoint-union graph, and ``batch`` defaults to
+    the set's :class:`~repro_torch.core.coalescing.GraphBatch`."""
     if snapshot_rounds is not None or fault_injector is not None:
         raise NotImplementedError(
             "degraded-mesh mode (snapshot_rounds, fault_injector) is not "
-            "ported yet (ROADMAP Queue 1 item 6)")
+            "ported yet (ROADMAP Queue 1 item 3)")
+    if isinstance(g, GraphSet):
+        batch = batch if batch is not None else g.axis
+        g = g.union()
     if not isinstance(g, Graph):
         raise NotImplementedError(
-            "run_distributed takes one Graph; graph sets come with the "
-            "batched_over_graphs_* entry points (ROADMAP Queue 1 item 4)")
+            f"run_distributed takes a Graph or a GraphSet, not "
+            f"{type(g).__name__}; wrap a list of graphs in GraphSet")
     if os.environ.get("REPRO_TRACE", "").strip() not in ("", "0"):
         raise NotImplementedError(
             "REPRO_TRACE wave taps come with observability (ROADMAP "
-            "Queue 1 item 9)")
+            "Queue 1 item 5)")
     P = mesh.shape[axis]
     auto_cap = capacity == "auto"
     if auto_cap:

@@ -5,9 +5,11 @@ source is in the frontier emits a message ``(dst, dist[src]+1)``; messages
 commit with the MF ``min`` operator (losers fail silently); the next
 frontier is the set of vertices whose distance changed.  The round loop
 runs on the host and reads one flag per round.  :func:`multi_source_bfs`
-runs L queries as lanes of one wave; the ``distributed_*`` forms run on
-the wave engine (:mod:`repro_torch.core.engine`).  The graph-batch and
-product forms come with ``GraphSet``.
+runs L queries as lanes of one wave, :func:`batched_over_graphs_bfs` one
+query per tenant graph of a :class:`~repro_torch.graphs.csr.GraphSet`;
+the ``distributed_*`` forms run on the wave engine
+(:mod:`repro_torch.core.engine`), :func:`distributed_product_bfs` L
+queries over each graph of a set.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from repro_torch.core import autotune as AT
 from repro_torch.core import commit as C
-from repro_torch.core.coalescing import QueryLanes
+from repro_torch.core.coalescing import ProductAxis, QueryLanes
 from repro_torch.core.engine import (AlgorithmSpec, run_distributed,
                                      telemetry_return)
 from repro_torch.core.messages import lane_messages, make_messages
@@ -196,6 +198,81 @@ def distributed_multi_source_bfs(mesh, g: Graph, sources, *,
                           fault_injector=fault_injector)
     dist = res.state["dist"].reshape(-1, lanes).T[:, :g.num_vertices]
     return telemetry_return((dist, res.rounds), res, telemetry)
+
+
+def distributed_product_bfs(mesh, gs, sources, *,
+                            capacity: int | str = 4096,
+                            m: int | None = None, axis: str = "data",
+                            spec: C.CommitSpec | None = None,
+                            max_subrounds: int = 64,
+                            telemetry: bool = False):
+    """Product-axis BFS over a mesh axis: L queries over each graph of a
+    :class:`~repro_torch.graphs.csr.GraphSet` share every wave.
+
+    ``sources`` is int [L, G], graph-local source ids (cell (l, g)
+    answers BFS from ``sources[l, g]`` in graph g).  State is
+    vertex-major [vpad * L] over the union; the lane id rides the
+    exchange as ``major`` as in :func:`distributed_multi_source_bfs`, and
+    only ``batch=ProductAxis(L, sizes)`` differs.  Returns (dist [L, Vtot],
+    rounds), ``telemetry=True`` appending the DistributedResult; split
+    per graph with ``gs.split_vertex(dist[l])``."""
+    dev = mesh.device
+    sources = torch.as_tensor(sources, device=dev).long()
+    lanes = sources.shape[0]
+    lidx = torch.arange(lanes, device=dev)
+    product = ProductAxis(lanes, gs.axis.sizes)
+    # per-cell union-flat source ids [L, G]
+    flat_src = sources + torch.as_tensor(gs.voffs[:-1], device=dev)[None, :]
+
+    def init(g, layout):
+        flat = (flat_src * lanes + lidx[:, None]).reshape(-1)
+        dist0 = torch.full((layout.vpad * lanes,), INF, dtype=torch.int32,
+                           device=dev)
+        dist0[flat] = 0
+        return {"dist": dist0, "frontier": dist0 == 0}, {}
+
+    def round_fn(rt, e, st, sc, it):
+        dist = st["dist"]                       # [block * L]
+        emax = e.dst.shape[0]
+        fl = e.my_src[:, None] * lanes + lidx[None, :]      # [emax, L]
+        active = st["frontier"][fl] & e.valid[:, None]
+        tgt = e.dst[:, None].expand(emax, lanes)
+        lane = lidx.to(torch.int32)[None, :].expand(emax, lanes)
+        dist2, _ = rt.wave(dist, tgt.reshape(-1),
+                           (dist[fl] + 1).reshape(-1), active.reshape(-1),
+                           op="min", major=lane.reshape(-1))
+        changed = dist2 != dist
+        return {"dist": dist2, "frontier": changed}, sc, rt.any(changed)
+
+    alg = AlgorithmSpec("product_bfs", "FF&MF", init, round_fn,
+                        lambda g, layout: layout.vpad)
+    res = run_distributed(alg, mesh, gs, capacity=capacity, m=m,
+                          axis=axis, spec=spec,
+                          max_subrounds=max_subrounds, batch=product)
+    dist = res.state["dist"].reshape(-1, lanes).T[:, :product.num_vertices]
+    return telemetry_return((dist, res.rounds), res, telemetry)
+
+
+def batched_over_graphs_bfs(gs, sources, *, spec: C.CommitSpec | None = None,
+                            mesh=None, capacity: int | str = 4096,
+                            axis: str = "data", max_subrounds: int = 64):
+    """G independent BFS queries, one per tenant graph, as one wave over
+    the :class:`~repro_torch.graphs.csr.GraphSet` union (flat keys
+    ``offset[g] + v``).
+
+    ``sources[g]`` is graph g's local source id.  Returns a list of
+    per-graph distance rows, each bit-identical to
+    ``bfs(gs.graphs[g], sources[g])`` on every backend: graphs exchange
+    no messages in the union and occupy disjoint commit-key ranges.
+    ``mesh=`` runs on the wave engine."""
+    flat = gs.flat_vertices(sources)
+    if mesh is not None:
+        dist, _ = distributed_bfs(mesh, gs, flat, spec=spec,
+                                  capacity=capacity, axis=axis,
+                                  max_subrounds=max_subrounds)
+    else:
+        dist = bfs(gs.union(), flat, spec=spec).dist
+    return gs.split_vertex(dist)
 
 
 def bfs_reference(g: Graph, source: int):

@@ -1,7 +1,9 @@
 """SSSP (Bellman-Ford label-correcting) — FF&MF messages, weighted ``min``
 commit.  Same AAM structure as BFS with ``dist[src] + w`` payloads;
-:func:`multi_source_sssp` runs L roots as lanes of one wave and
-:func:`distributed_sssp` runs on the wave engine."""
+:func:`multi_source_sssp` runs L roots as lanes of one wave,
+:func:`batched_over_graphs_sssp` one root per tenant graph of a
+:class:`~repro_torch.graphs.csr.GraphSet`, and the ``distributed_*`` forms
+run on the wave engine."""
 from __future__ import annotations
 
 import heapq
@@ -11,6 +13,7 @@ import torch
 
 from repro_torch.core import autotune as AT
 from repro_torch.core import commit as C
+from repro_torch.core.coalescing import QueryLanes
 from repro_torch.core.engine import (AlgorithmSpec, run_distributed,
                                      telemetry_return)
 from repro_torch.core.messages import lane_messages, make_messages
@@ -106,6 +109,70 @@ def distributed_sssp(mesh, g: Graph, source, *, capacity: int | str = 4096,
                           spec=spec, max_subrounds=max_subrounds)
     dist = res.state["dist"][:g.num_vertices]
     return telemetry_return((dist, res.rounds), res, telemetry)
+
+
+def distributed_multi_source_sssp(mesh, g: Graph, sources, *,
+                                  capacity: int | str = 4096,
+                                  m: int | None = None, axis: str = "data",
+                                  spec: C.CommitSpec | None = None,
+                                  max_subrounds: int = 64,
+                                  telemetry: bool = False):
+    """Lane-batched Bellman-Ford on the wave engine (vertex-major
+    [vpad * L] state, lane ids riding the coalescing buckets), the
+    distributed mirror of :func:`multi_source_sssp`.  Returns
+    (dist [L, V], rounds); ``telemetry=True`` appends the
+    DistributedResult."""
+    dev = mesh.device
+    sources = torch.as_tensor(sources, device=dev).long()
+    lanes = sources.shape[0]
+    lidx = torch.arange(lanes, device=dev)
+
+    def init(g, layout):
+        dist0 = torch.full((layout.vpad * lanes,), INF, dtype=torch.float32,
+                           device=dev)
+        dist0[sources * lanes + lidx] = 0.0
+        return {"dist": dist0, "frontier": dist0 == 0}, {}
+
+    def round_fn(rt, e, st, sc, it):
+        dist = st["dist"]
+        emax = e.dst.shape[0]
+        fl = e.my_src[:, None] * lanes + lidx[None, :]
+        active = st["frontier"][fl] & e.valid[:, None]
+        tgt = e.dst[:, None].expand(emax, lanes)
+        lane = lidx.to(torch.int32)[None, :].expand(emax, lanes)
+        dist2, _ = rt.wave(dist, tgt.reshape(-1),
+                           (dist[fl] + e.weight[:, None]).reshape(-1),
+                           active.reshape(-1), op="min",
+                           major=lane.reshape(-1))
+        changed = dist2 != dist
+        return {"dist": dist2, "frontier": changed}, sc, rt.any(changed)
+
+    alg = AlgorithmSpec("multi_sssp", "FF&MF", init, round_fn,
+                        lambda g, layout: layout.vpad)
+    res = run_distributed(alg, mesh, g, capacity=capacity, m=m, axis=axis,
+                          spec=spec, max_subrounds=max_subrounds,
+                          batch=QueryLanes(lanes, g.num_vertices))
+    dist = res.state["dist"].reshape(-1, lanes).T[:, :g.num_vertices]
+    return telemetry_return((dist, res.rounds), res, telemetry)
+
+
+def batched_over_graphs_sssp(gs, sources, *,
+                             spec: C.CommitSpec | None = None,
+                             mesh=None, capacity: int | str = 4096,
+                             axis: str = "data", max_subrounds: int = 64):
+    """G independent SSSP queries, one per tenant graph, fused on the
+    graph batch axis.  ``sources[g]`` is graph g's local root.  Returns
+    per-graph f32 distance rows, bit-identical to
+    ``sssp(gs.graphs[g], sources[g])`` on every backend (f32 ``min`` over
+    the same relaxations is order-independent)."""
+    flat = gs.flat_vertices(sources)
+    if mesh is not None:
+        dist, _ = distributed_sssp(mesh, gs, flat, spec=spec,
+                                   capacity=capacity, axis=axis,
+                                   max_subrounds=max_subrounds)
+    else:
+        dist, _ = sssp(gs.union(), flat, spec=spec)
+    return gs.split_vertex(dist)
 
 
 def sssp_reference(g: Graph, source: int):

@@ -3,8 +3,8 @@
 Algorithms here are *edge-centric*: one vectorized pass over the edge
 arrays generates the round's atomic active messages (src active ->
 message to dst).  :func:`partition_edges` splits the edges over the
-shards of the wave engine.  ``GraphSet`` of the reference comes with the
-graph-batch entry points.
+shards of the wave engine.  :class:`GraphSet` stacks G tenant graphs into
+one flat vertex/edge space: the graph batch axis.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.coalescing import GraphBatch
 
 
 @dataclasses.dataclass
@@ -80,6 +81,125 @@ def graph_on(indptr, src, dst, weights, num_vertices: int, device) -> Graph:
     return Graph(indptr=put(indptr, np.int32), src=src,
                  dst=put(dst, np.int32), weights=put(weights, np.float32),
                  num_vertices=int(num_vertices), num_edges=int(src.shape[0]))
+
+
+# ---------------------------------------------------------------------------
+# GraphSet: G tenant graphs stacked into one flat vertex/edge space
+# ---------------------------------------------------------------------------
+
+
+class GraphSet:
+    """A batch of G independent graphs sharing one flat key space.
+
+    Graph ``i``'s vertices occupy the contiguous range ``[voffs[i],
+    voffs[i + 1])`` of the flat space, its edges the range ``[eoffs[i],
+    eoffs[i + 1])`` of the stacked edge arrays.  :meth:`union` builds the
+    disjoint-union :class:`Graph` on the members' device: running a wave
+    algorithm over the union is running it on every member at once,
+    because members exchange no messages and their flat ranges never
+    collide in the commit key space.  Sizes and offsets are plain ints,
+    and :attr:`axis` is the matching
+    :class:`repro_torch.core.coalescing.GraphBatch`."""
+
+    def __init__(self, graphs):
+        self.graphs = tuple(graphs)
+        if not self.graphs:
+            raise ValueError("GraphSet needs at least one graph")
+        devices = {g.device for g in self.graphs}
+        if len(devices) != 1:
+            raise ValueError(f"GraphSet members lie on several devices: "
+                             f"{sorted(map(str, devices))}")
+        self.vsizes = tuple(int(g.num_vertices) for g in self.graphs)
+        self.esizes = tuple(int(g.num_edges) for g in self.graphs)
+        self.voffs = np.concatenate(
+            [[0], np.cumsum(self.vsizes)]).astype(np.int64)
+        self.eoffs = np.concatenate(
+            [[0], np.cumsum(self.esizes)]).astype(np.int64)
+        self._union: Graph | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.graphs[0].device
+
+    @property
+    def num_graphs(self) -> int:
+        return len(self.graphs)
+
+    @property
+    def num_vertices(self) -> int:
+        return int(self.voffs[-1])
+
+    @property
+    def num_edges(self) -> int:
+        return int(self.eoffs[-1])
+
+    def vertex_offset(self, i: int) -> int:
+        return int(self.voffs[i])
+
+    @property
+    def axis(self) -> GraphBatch:
+        """The graph batch axis of this set."""
+        return GraphBatch(sizes=self.vsizes)
+
+    def union(self) -> Graph:
+        """The disjoint-union graph (cached): stacked edge arrays with
+        each member's vertex offset added, concatenated CSR indptr."""
+        if self._union is None:
+            offs = [int(o) for o in self.voffs[:-1]]
+            eoffs = [int(o) for o in self.eoffs[:-1]]
+            src = torch.cat([g.src + o for g, o in zip(self.graphs, offs)])
+            dst = torch.cat([g.dst + o for g, o in zip(self.graphs, offs)])
+            w = torch.cat([g.weights for g in self.graphs])
+            indptr = torch.cat(
+                [g.indptr[:-1] + o for g, o in zip(self.graphs, eoffs)]
+                + [torch.tensor([self.num_edges], dtype=torch.int32,
+                                device=self.device)])
+            self._union = Graph(indptr=indptr, src=src, dst=dst, weights=w,
+                                num_vertices=self.num_vertices,
+                                num_edges=self.num_edges)
+        return self._union
+
+    def flat_vertices(self, per_graph) -> torch.Tensor:
+        """Map per-graph vertex ids ``per_graph`` ([G] int) into the flat
+        space: ``voffs[i] + per_graph[i]``, int32 on the set's device."""
+        ids = np.asarray(torch.as_tensor(per_graph).cpu(), np.int64)
+        if ids.shape != (self.num_graphs,):
+            raise ValueError(f"expected one vertex per graph "
+                             f"({self.num_graphs}), got shape {ids.shape}")
+        return torch.as_tensor(self.voffs[:-1] + ids, dtype=torch.int32,
+                               device=self.device)
+
+    def split_vertex(self, flat) -> list:
+        """Slice a flat [num_vertices] (or [num_vertices, ...]) array back
+        into per-graph rows."""
+        return [flat[int(self.voffs[i]):int(self.voffs[i + 1])]
+                for i in range(self.num_graphs)]
+
+    def split_edge(self, flat) -> list:
+        return [flat[int(self.eoffs[i]):int(self.eoffs[i + 1])]
+                for i in range(self.num_graphs)]
+
+    def graph_of_vertex(self) -> torch.Tensor:
+        """int32 [num_vertices] graph index per flat vertex id."""
+        return self._repeat(self.vsizes)
+
+    def graph_of_edge(self) -> torch.Tensor:
+        """int32 [num_edges] graph index per stacked edge id."""
+        return self._repeat(self.esizes)
+
+    def _repeat(self, sizes) -> torch.Tensor:
+        return torch.repeat_interleave(
+            torch.arange(self.num_graphs, dtype=torch.int32,
+                         device=self.device),
+            torch.as_tensor(sizes, dtype=torch.int64, device=self.device))
+
+
+def segment_sum(values, seg, num_segments: int) -> torch.Tensor:
+    """[num_segments] sums of ``values`` by segment id ``seg`` (a
+    GraphSet's per-graph reductions by its graph-of-vertex map)."""
+    out = torch.zeros((num_segments,), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, seg.long(), values)
 
 
 # ---------------------------------------------------------------------------

@@ -59,7 +59,7 @@ def ssd_chunk_kernel(C, B, x, a):
                          "and G < 2**31")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (C, B, x, a)):
         raise NotImplementedError("the SSD kernel has no backward yet "
-                                  "(ROADMAP Queue 1 item 11, training)")
+                                  "(ROADMAP Queue 1 item 9, training)")
     y = torch.empty_like(x)
     if g == 0:
         return y

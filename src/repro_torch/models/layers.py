@@ -5,7 +5,7 @@ reference parameter carries over as it is.
 
 RoPE and the MLP, and the gemma-style options (embedding scale, final
 logit softcap, zero-centred norms), wait for the dense family (ROADMAP
-Queue 1 item 11) and raise :class:`NotImplementedError` until then.
+Queue 1 item 9) and raise :class:`NotImplementedError` until then.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 11)")
+        f"{what} is not ported yet (ROADMAP Queue 1 item 9)")
 
 
 def dense_init(shape, generator: torch.Generator, *, scale=None,

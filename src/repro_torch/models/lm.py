@@ -10,7 +10,7 @@ belongs to layer ``j * len(pattern) + i``.
 
 Ported: Mamba mixers with no MLP, for train, prefill and decode.  The
 attention mixers, the dense and MoE MLPs, post-norms and frontends raise
-:class:`NotImplementedError` (ROADMAP Queue 1 item 11).  The reference's
+:class:`NotImplementedError` (ROADMAP Queue 1 item 9).  The reference's
 sharding constraints have no counterpart: the port runs on one card.
 """
 from __future__ import annotations

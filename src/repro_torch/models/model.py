@@ -2,7 +2,7 @@
 the decoder-only families the port runs (Mamba2 so far).
 
 The encoder-decoder family raises :class:`NotImplementedError` (ROADMAP
-Queue 1 item 11); ``loss_fn`` and ``input_specs`` wait for training.
+Queue 1 item 9); ``loss_fn`` and ``input_specs`` wait for training.
 Prefill and decode run without autograd.
 """
 from __future__ import annotations

@@ -1,12 +1,14 @@
-"""Where a round's device time goes: ``torch.profiler`` over BFS and
-PageRank of the PyTorch port on one card.
+"""Where a round's device time goes: ``torch.profiler`` over the graph
+algorithms of the PyTorch port on one card.
 
     PYTHONPATH=src python3 -m repro_torch.obs.round_profile
 
 Builds the Graph500 Kronecker graph of ``chip_smoke.py`` (scale 21, edge
 factor 16, seed 0), runs one warm-up and one profiled call of each
-single-shard algorithm on the ``pallas``, ``atomic`` and ``coarse``
-backends, and of one wave of the wave engine on ``pallas`` and
+single-shard algorithm (BFS, PageRank, st-connectivity to the farthest
+vertex BFS reaches, coloring, Boruvka on random weights) on the
+``pallas``, ``atomic`` and ``coarse`` backends, and of one wave of the
+wave engine on ``pallas`` and
 ``fused``: ``wave_until_delivered`` on a PageRank iteration's messages
 (every edge, f32 ``add``) at world size 1 and capacity 2**24, as in
 ``chip_smoke.py`` phase 6 but without the call's set-up (the edge
@@ -43,9 +45,12 @@ def main() -> int:
         return 1
     from repro_torch.core.commit import CommitSpec
     from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.graphs.algorithms.boruvka import boruvka
+    from repro_torch.graphs.algorithms.coloring import coloring
     from repro_torch.graphs.algorithms.pagerank import pagerank
+    from repro_torch.graphs.algorithms.stconn import st_connectivity
     from repro_torch.core.engine import EngineConfig, wave_until_delivered
-    from repro_torch.graphs.generators import kronecker
+    from repro_torch.graphs.generators import kronecker, random_weights
     from repro_torch.launch.mesh import make_mesh
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -53,12 +58,19 @@ def main() -> int:
                          text=True, check=True, timeout=60)
     print(smi.stdout.strip().splitlines()[0])
     g = kronecker(SCALE, 16, seed=0, device="cuda")
+    gw = random_weights(g, seed=0)
     src = int(torch.argmax(g.degrees))
+    dist = bfs(g, src, spec=CommitSpec(backend="pallas", stats=False)).dist
+    far = int(torch.argmax(torch.where(dist < 2 ** 29, dist, -1)))
     for backend in BACKENDS:
         spec = CommitSpec(backend=backend, stats=False)
         profile_runs(
             {"bfs": lambda: bfs(g, src, spec=spec).rounds,
-             "pagerank": lambda: (pagerank(g, iters=20, spec=spec), 20)[1]},
+             "pagerank": lambda: (pagerank(g, iters=20, spec=spec), 20)[1],
+             "st_connectivity": lambda: st_connectivity(g, src, far,
+                                                        spec=spec)[1],
+             "coloring": lambda: coloring(g, seed=0, spec=spec)[1],
+             "boruvka": lambda: boruvka(gw, spec=spec)[3]},
             f"{backend}, scale {SCALE}")
     v = g.num_vertices
     contrib = torch.rand(g.num_edges, generator=torch.Generator(

@@ -561,3 +561,189 @@ def test_commit_without_stats_launches_no_fill(cuda, op):
         assert any("commit_span" in k for k in names), names
         assert not [k for k in names if "fill" in k.lower()
                     or "commit_span" not in k and "Memcpy" not in k], names
+
+
+# -- st-connectivity, coloring, Boruvka, the graph batch and lane forms ----
+
+def _graph_slice_outputs(dev, backend):
+    """Every single-shard entry of st-connectivity, coloring and Boruvka,
+    the lane forms of st-connectivity and PageRank, and the six
+    ``batched_over_graphs_*`` (single-shard and ``mesh=``) on ``dev``, as
+    CPU tensors keyed by name (ranks scaled by V)."""
+    from repro_torch.graphs.algorithms import (bfs, boruvka, coloring,
+                                               pagerank, sssp, stconn)
+    from repro_torch.graphs.csr import GraphSet
+    spec = CommitSpec(backend=backend, stats=False)
+    g = random_weights(kronecker(12, 16, seed=0, device=dev), seed=0)
+    deg = g.degrees.cpu()
+    hub, lone = int(torch.argmax(deg)), int(torch.nonzero(deg == 0)[0])
+    dist = bfs.bfs(g, hub, spec=spec).dist
+    far = int(torch.argmax(torch.where(dist < 2 ** 29, dist, -1)))
+    out = {}
+    for name, t in (("connected", far), ("disconnected", lone),
+                    ("s == t", hub)):
+        found, rounds = stconn.st_connectivity(g, hub, t, spec=spec)
+        out[f"stconn {name}"] = torch.tensor([int(found), rounds])
+    ss, ts = [hub, 1, 2, hub], [far, lone, 2, 3]
+    found, rounds = stconn.multi_source_stconn(g, ss, ts, spec=spec)
+    out["multi_stconn"] = torch.cat([found.int().cpu(),
+                                     torch.tensor([rounds])])
+    color, rounds, nc = coloring.coloring(g, seed=1, spec=spec)
+    assert coloring.validate_coloring(g, color) and not bool(nc)
+    out["coloring"] = torch.cat([color.cpu(), torch.tensor([rounds])])
+    comp, sel, rounds = boruvka.boruvka_forest(g, spec=spec)
+    out["boruvka"] = torch.cat([comp.cpu(), sel.int().cpu(),
+                                torch.tensor([rounds])])
+    out["boruvka weight"] = boruvka.boruvka(g, spec=spec)[1].cpu()
+    rank, _ = pagerank.multi_source_pagerank(g, [hub, 1, 2], iters=5,
+                                             spec=spec)
+    out["multi_ppr"] = rank.cpu() * g.num_vertices
+    gs = GraphSet([random_weights(kronecker(s, 8, seed=s, device=dev),
+                                  seed=s) for s in (8, 9, 10)])
+    srcs = [int(torch.argmax(m.degrees)) for m in gs.graphs]
+    mesh = make_mesh(device=dev)
+    for route, kw in (("", {}), (" mesh", dict(mesh=mesh, capacity=4096,
+                                               max_subrounds=256))):
+        kw = dict(kw, spec=spec)
+        out["gb_bfs" + route] = torch.cat(
+            bfs.batched_over_graphs_bfs(gs, srcs, **kw)).cpu()
+        out["gb_sssp" + route] = torch.cat(
+            sssp.batched_over_graphs_sssp(gs, srcs, **kw)).cpu()
+        out["gb_ppr" + route] = torch.cat(
+            pagerank.batched_over_graphs_pagerank(gs, srcs, iters=5,
+                                                  **kw)).cpu() * 1e3
+        out["gb_stconn" + route] = stconn.batched_over_graphs_stconn(
+            gs, srcs, [0, 1, 2], **kw).cpu()
+        colors, rounds, nc = coloring.batched_over_graphs_coloring(
+            gs, seed=1, **kw)
+        out["gb_coloring" + route] = torch.cat(
+            [c.cpu() for c in colors] + [nc.int().cpu(),
+                                         torch.tensor([rounds])])
+        trees, rounds = boruvka.batched_over_graphs_boruvka(gs, **kw)
+        out["gb_boruvka" + route] = torch.cat(
+            [c.cpu() for c, _, _ in trees]
+            + [torch.stack([n for _, _, n in trees]).cpu(),
+               torch.tensor([rounds])])
+        out["gb_boruvka weight" + route] = torch.stack(
+            [w for _, w, _ in trees]).cpu()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_graph_slice_on_card_matches_cpu(cuda, backend):
+    """Kronecker scale 12 and three tenants of scales 8-10: the same
+    answers on the card as on the CPU; float sums (ranks, MST weights)
+    within rtol 2e-4 / 1e-5."""
+    card = _graph_slice_outputs("cuda", backend)
+    cpu = _graph_slice_outputs("cpu", backend)
+    assert card.keys() == cpu.keys()
+    for key, exp in cpu.items():
+        got = card[key]
+        if "ppr" in key:
+            torch.testing.assert_close(got, exp, rtol=2e-4, atol=1e-6)
+        elif "weight" in key:
+            torch.testing.assert_close(got, exp, rtol=1e-5, atol=0.0)
+        else:
+            assert torch.equal(got, exp), key
+
+
+def _engine_slice_outputs(dev, backend):
+    """The wave-engine forms of st-connectivity, coloring and Boruvka, the
+    lane forms of SSSP, PageRank and st-connectivity, and the product BFS
+    at world size 1 on ``dev``: outputs as CPU tensors and telemetry."""
+    from repro_torch.graphs.algorithms import (bfs, boruvka, coloring,
+                                               pagerank, sssp, stconn)
+    from repro_torch.graphs.csr import GraphSet
+    g = random_weights(kronecker(12, 16, seed=0, device=dev), seed=0)
+    hub = int(torch.argmax(g.degrees))
+    lone = int(torch.nonzero(g.degrees == 0)[0])
+    dist = bfs.bfs(g, hub).dist
+    far = int(torch.argmax(torch.where(dist < 2 ** 29, dist, -1)))
+    mesh = make_mesh(device=dev)
+    kw = dict(capacity=4096, spec=CommitSpec(backend=backend),
+              max_subrounds=256, telemetry=True)
+    gs = GraphSet([kronecker(s, 8, seed=s, device=dev) for s in (8, 9)])
+    runs = {
+        "stconn": lambda: stconn.distributed_stconn(mesh, g, hub, far,
+                                                    **kw),
+        "coloring": lambda: coloring.distributed_coloring(mesh, g, **kw),
+        "boruvka": lambda: boruvka.distributed_boruvka(mesh, g, **kw),
+        "multi_sssp": lambda: sssp.distributed_multi_source_sssp(
+            mesh, g, [hub, 1, 2], **kw),
+        "multi_ppr": lambda: pagerank.distributed_multi_source_pagerank(
+            mesh, g, [hub, 1, 2], iters=5, **kw),
+        "multi_stconn": lambda: stconn.distributed_multi_source_stconn(
+            mesh, g, [hub, hub, 1], [far, lone, 1], **kw),
+        "product_bfs": lambda: bfs.distributed_product_bfs(
+            mesh, gs, [[0, 1], [7, 3]], **kw),
+    }
+    out = {}
+    for name, run in runs.items():
+        *res, tel = run()
+        out[name] = ([torch.as_tensor(r).cpu() for r in res],
+                     (tel.rounds, tel.subrounds, int(tel.conflicts),
+                      tel.delivered_all))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_engine_slice_on_card_matches_cpu(cuda, backend):
+    card = _engine_slice_outputs("cuda", backend)
+    cpu = _engine_slice_outputs("cpu", backend)
+    for name, (exp, exp_tel) in cpu.items():
+        got, tel = card[name]
+        assert tel == exp_tel and tel[3], name
+        for a, b in zip(got, exp):
+            if name == "multi_ppr":
+                torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-6)
+            elif a.dtype == torch.float32 and name == "boruvka":
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=0.0)
+            else:
+                assert torch.equal(a, b), name
+
+
+def _graph_round_batches(dev):
+    """The message batches of one st-connectivity round (``first``: each
+    live edge's color into white slots) and one coloring round (``or``:
+    a 1 to each conflicting edge's loser) on Kronecker scale 14, as
+    (op, state, idx with -1 masked, val)."""
+    from repro_torch.graphs.algorithms import coloring as CO
+    from repro_torch.graphs.algorithms import stconn as ST
+    g = kronecker(14, 16, seed=1, device=dev)
+    v = g.num_vertices
+    hub = int(torch.argmax(g.degrees))
+    color = torch.full((v,), ST.WHITE, dtype=torch.int32, device=dev)
+    nbrs = g.dst[g.src == hub].long()
+    color[nbrs] = ST.GREY          # the grey wave after one round
+    color[hub] = ST.GREY
+    color[3] = ST.GREEN
+    active = (color[g.src] != ST.WHITE)
+    first = ("first", color, torch.where(active, g.dst, -1),
+             color[g.src].contiguous())
+    pal = int(g.degrees.max()) + 1
+    c = CO._propose(torch.arange(v, device=dev),
+                    torch.ones(v, dtype=torch.bool, device=dev),
+                    torch.zeros(v, dtype=torch.int32, device=dev),
+                    min(pal, 8), 0, 0)         # a small palette: conflicts
+    loser = CO._pair_loser(g.src, g.dst, 0, 0)
+    ors = ("or", torch.zeros(v, dtype=torch.int32, device=dev),
+           torch.where(c[g.src] == c[g.dst], loser, -1),
+           torch.ones(g.num_edges, dtype=torch.int32, device=dev))
+    return first, ors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+def test_first_and_or_match_plain_on_graph_rounds(cuda, stats):
+    for op, state, idx, val in _graph_round_batches(cuda):
+        assert (idx >= 0).any() and (idx < 0).any(), op
+        for kernel, plain, args, kw in _commit_cases(state, idx, val):
+            got = kernel(*args, op=op, stats=stats, **kw)
+            exp = plain(*args, op=op, stats=stats, **kw)
+            if stats:
+                (got, got_c), (exp, exp_c) = got, exp
+                assert int(got_c) == int(exp_c), op
+            assert torch.equal(got, exp), op
+            assert not torch.equal(got, state), op

@@ -204,9 +204,9 @@ def test_unported_modes_raise():
         TB.distributed_bfs(mesh, tg, src, snapshot_rounds=2)
     with pytest.raises(NotImplementedError, match="degraded-mesh"):
         TB.distributed_bfs(mesh, tg, src, fault_injector=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         TSpec(backend="auto")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="items 5 and 7"):
         TSpec(backend="coarse", trace=True)
     with pytest.raises(NotImplementedError, match="Graph"):
         TE.run_distributed(None, mesh, [tg, tg])

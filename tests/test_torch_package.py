@@ -41,7 +41,10 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.models.ssm", "repro_torch.models.lm",
                      "repro_torch.models.model",
                      "repro_torch.serve.serve_step",
-                     "repro_torch.launch.serve"):
+                     "repro_torch.launch.serve",
+                     "repro_torch.graphs.algorithms.stconn",
+                     "repro_torch.graphs.algorithms.coloring",
+                     "repro_torch.graphs.algorithms.boruvka"):
             assert name in names, name
         print(len(names))
     """)
@@ -82,10 +85,11 @@ def _entry_points():
                          max_new_tokens=2),
         lambda: convert.to_lm_params(cfg, {"embed": {}, "blocks": [],
                                            "final_norm": np.ones(2)}),
+        lambda: convert.to_graphset([([0, 1, 2, 2], *edges, [1.0, 1.0], 3)]),
     ]
 
 
-@pytest.mark.parametrize("i", range(15))
+@pytest.mark.parametrize("i", range(16))
 def test_entry_points_default_to_cuda(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -100,6 +104,41 @@ def test_entry_points_run_on_cpu_when_asked():
     r = bfs(g, 0)
     assert r.dist.device.type == "cpu"
     assert r.dist.tolist() == [i + j for i in range(4) for j in range(4)]
+
+
+def test_graph_entry_points_follow_the_graph_device():
+    """The graph algorithms take their device from the graph or the mesh:
+    on a CPU graph every one of them returns CPU tensors."""
+    from repro_torch.graphs.algorithms import (bfs, boruvka, coloring,
+                                               pagerank, sssp, stconn)
+    from repro_torch.graphs.csr import GraphSet
+    from repro_torch.graphs.generators import grid2d, random_weights
+    from repro_torch.launch.mesh import make_mesh
+    g = random_weights(grid2d(4, device="cpu"), seed=1)
+    gs = GraphSet([g, random_weights(grid2d(3, device="cpu"), seed=2)])
+    mesh = make_mesh(device="cpu")
+    outs = [
+        stconn.st_connectivity(g, 0, 15)[0],
+        stconn.multi_source_stconn(g, [0, 1], [15, 2])[0],
+        stconn.batched_over_graphs_stconn(gs, [0, 0], [15, 8]),
+        stconn.distributed_stconn(mesh, g, 0, 15)[0],
+        stconn.distributed_multi_source_stconn(mesh, g, [0], [15])[0],
+        coloring.coloring(g)[0],
+        coloring.batched_over_graphs_coloring(gs)[0][1],
+        coloring.distributed_coloring(mesh, g)[0],
+        boruvka.boruvka(g)[1],
+        boruvka.batched_over_graphs_boruvka(gs)[0][1][0],
+        boruvka.distributed_boruvka(mesh, g)[0],
+        bfs.batched_over_graphs_bfs(gs, [0, 1])[0],
+        bfs.distributed_product_bfs(mesh, gs, [[0, 1]])[0],
+        sssp.batched_over_graphs_sssp(gs, [0, 1], mesh=mesh)[1],
+        sssp.distributed_multi_source_sssp(mesh, g, [0, 3])[0],
+        pagerank.multi_source_pagerank(g, [0, 3], iters=2)[0],
+        pagerank.batched_over_graphs_pagerank(gs, [0, 1], iters=2)[0],
+        pagerank.distributed_multi_source_pagerank(mesh, g, [0], iters=2),
+    ]
+    for i, out in enumerate(outs):
+        assert out.device.type == "cpu", i
 
 
 def test_serve_launcher_runs_on_cpu():
@@ -121,5 +160,5 @@ def test_unported_families_raise():
     from repro_torch.models import model
     for name in ("qwen2-1.5b", "jamba-1.5-large-398b",
                  "phi3.5-moe-42b-a6.6b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             model.init(smoke_model(ARCHS[name]), device="cpu")
