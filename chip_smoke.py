@@ -9,7 +9,8 @@ Phases, one or more lines each:
 2. the build of the four CUDA kernels (one ``nvcc`` per source, in
    parallel);
 3. each commit kernel against its plain version on the card, over op x
-   dtype x stats x target skew x tile_m at V = 2**21, N = 2**26 (state
+   dtype x stats x target skew x tile_m (the odd 7 and every transaction
+   size of the tuner's ladder) at V = 2**21, N = 2**26 (state
    bit-identical, float ``add`` within rtol 2e-4 / atol 1e-6, conflicts
    equal), then each checked against and timed beside its plain version
    on the main path's own message batch (f32 ``add``, f32 and int32
@@ -50,6 +51,22 @@ Phases, one or more lines each:
    st-connectivity, and the ``mesh=`` route of the six
    ``batched_over_graphs_*``, each equal to (a), (c) or (d) with every
    message delivered; (c)-(e) on ``pallas`` and ``fused``;
+9. the tuned, traced and sanitised commit, after phase 8 on the same
+   graph: (a) ``CommitSpec(backend="auto")`` at ``stats=False`` and
+   ``True`` on ``bfs``, ``sssp``, ``pagerank`` (20 iterations),
+   ``coloring``, ``boruvka`` and ``st_connectivity``, each equal to phase
+   4's or 8's static ``pallas`` output, timed beside it (the first call
+   calibrates), the kernel tiers in every calibration, the tuner's audit
+   printed; (b) a second ``AutoTuner`` on (a)'s cache file gives the same
+   policies with no timed run; (c) auto ``distributed_bfs`` and
+   ``distributed_pagerank`` at world size 1, C = 2**24, equal to phase 6's
+   with every message delivered, ``m_final`` printed; (d) a degraded
+   ``distributed_bfs`` (``snapshot_rounds=2``, one injected fault) equal
+   to phase 6's; (e) ``run_transactions`` over 32,768 transactions of 6
+   vertices in 2**16, every vertex visited, with retries; (f)
+   ``trace=True`` on auto ``bfs`` and ``distributed_bfs`` (one record per
+   commit or round, a valid trace) and ``sanitize=True`` on ``pallas``
+   ``bfs`` and ``pagerank`` (no ``SanitizeError``), with their costs;
 7. Mamba2-780m at its published width (48 layers, d_model 1536, 48 SSD
    heads of 64, state 128), bf16 compute over f32 weights drawn on the
    card from a seed: ``generate()`` on 8 x 2048 prompt tokens + 32 greedy
@@ -62,11 +79,12 @@ Phases, one or more lines each:
    steps against an S prefill, and ``ssm_apply`` against the sequential
    ``ssm_ref``.
 
-Phases 4, 6, 8 and 7 (run in that order) are the main path: each zeroes
-the kernels' launch counters before it and reads them after, and fails
-if a kernel of its path was not launched (phase 6: the bucket count, and
-the fused kernel with 4 lanes; phase 8: both commit kernels and the
-bucket count; phase 7: the SSD kernel once per layer).  Then one JSON
+Phases 4, 6, 8, 9 and 7 (run in that order) are the main path: each
+zeroes the kernels' launch counters before it and reads them after, and
+fails if a kernel of its path was not launched (phase 6: the bucket
+count, and the fused kernel with 4 lanes; phase 8: both commit kernels
+and the bucket count; phase 9: a commit kernel and the bucket count;
+phase 7: the SSD kernel once per layer).  Then one JSON
 line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
 device ms per launch, from launches back to back; ``call_ms`` is one
 launch after a synchronise, what a caller pays per call) and, last, the
@@ -104,6 +122,9 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                   "src/repro/kernels/ssd_chunk.py:19"),
 }
 COUNT_BUCKETS = (1, 7, 8, 128, 1000, 65536)   # phase 3's bucket-count grid
+TILE_MS = (7, 16, 64, 256, 1024, 4096)  # phase 3: the odd 7 and the ladder
+TXN_SHAPE = (32768, 6, 1 << 16)    # phase 9e: transactions, vertices each,
+#                                    V; (32,768)^2 keys stay below 2^31
 ENGINE_CAPACITY = 2 ** 24          # phases 6 and 8's coalescing factor C
 LANES = 4                          # phases 6 and 8's query lanes
 LANE_PPR_ITERS = 5                 # phase 8's lane PageRank iterations
@@ -234,7 +255,7 @@ def phase_kernel_grid(device, max_err):
             for dtype in (torch.int32, torch.float32):
                 state, val = grid_inputs(op, dtype, v, n, gen, device)
                 for stats in (False, True):
-                    for tile_m in (7, 256, 4096):
+                    for tile_m in TILE_MS:
                         runs = [
                             ("coarse_commit", coarse_commit_kernel,
                              ref.coarse_commit_ref, (state, idx, val),
@@ -992,7 +1013,8 @@ def phase8_engine(g, gw, device, single, lanes, batch):
 def phase_graph_slice(g, small, device, single):
     """Phase 8: the slice's main path (st-connectivity, coloring, Boruvka,
     the graph batch, the lane and engine forms).  Returns the three graph
-    kernels' launches in it."""
+    kernels' launches in it and phase 8a's endpoints and ``pallas``
+    results."""
     import numpy as np
     import torch
     from repro_torch.graphs.generators import random_weights
@@ -1012,14 +1034,276 @@ def phase_graph_slice(g, small, device, single):
         lanes = (ss, ts, phase8_lanes(g, ss, ts))
         batch = phase8_batch(device)
         phase8_engine(g, gw, device, one, lanes, batch)
-    _, launches = count_launches(run)
+        return one
+    one, launches = count_launches(run)
     torch.cuda.synchronize()
     say(f"phase 8: done in {time.perf_counter() - t0:.1f} s; launches "
         f"{launches}")
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was not launched in phase 8")
+    return launches, one
+
+
+def _drop_at_chunk_1(chunk, rounds_done):
+    """Phase 9d's fault: a simulated host drop before chunk 1."""
+    if chunk == 1:
+        raise RuntimeError("simulated host drop")
+
+
+def phase_tuned(g, device, single, slice_one):
+    """Phase 9: the tuned, traced and sanitised commit on phase 4's graph,
+    held to phases 4, 6 and 8's static results.  Returns the three graph
+    kernels' launches in it."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch.core import autotune as AT
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    cache_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name,
+                                                      "autotune.json")
+    # every policy the run asks for, to ask a second tuner the same; and
+    # the feedback steps of adaptive policies (each one host read), with
+    # the transaction size each step leaves
+    policies, steps = [], []
+    real_policy_for, real_next_level = AT.policy_for, AT.next_level
+
+    def policy_for(spec, state, msgs=None, **kw):
+        pol = real_policy_for(spec, state, msgs, **kw)
+        policies.append((spec, state, msgs, kw, pol))
+        return pol
+
+    def next_level(policy, *args):
+        level = real_next_level(policy, *args)
+        if policy.adaptive:               # a static policy reads nothing
+            steps.append(policy.ladder[level] or 0)
+        return level
+    # seconds the default tuner spends calibrating and racing
+    tuner, spent = AT.DEFAULT_TUNER, [0.0]
+
+    def clocked(fn):
+        def run(*args, **kw):
+            out, sec = timed(lambda: fn(*args, **kw))
+            spent[0] += sec
+            return out
+        return run
+    AT.policy_for, AT.next_level = policy_for, next_level
+    tuner.calibrate, tuner.race = clocked(tuner.calibrate), clocked(tuner.race)
+    try:
+        _, launches = count_launches(lambda: _phase9(
+            g, device, single, slice_one, policies, steps, spent,
+            real_policy_for))
+    finally:
+        AT.policy_for, AT.next_level = real_policy_for, real_next_level
+        del tuner.calibrate, tuner.race
+        os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+        cache_dir.cleanup()
+    torch.cuda.synchronize()
+    say(f"phase 9: done in {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{launches}")
+    if (launches["coarse_commit"] + launches["fused_route_commit"] < 1
+            or launches["bucket_count"] < 1):
+        raise AssertionError("phase 9 launched no commit kernel or no "
+                             "bucket count")
     return launches
+
+
+def _phase9(g, device, single, slice_one, policies, steps, spent,
+            real_policy_for):
+    import numpy as np
+    import torch
+    from repro_torch.core import autotune as AT
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.core.ownership import run_transactions
+    from repro_torch.graphs.algorithms.bfs import bfs, distributed_bfs
+    from repro_torch.graphs.algorithms.boruvka import boruvka
+    from repro_torch.graphs.algorithms.coloring import coloring
+    from repro_torch.graphs.algorithms.pagerank import (distributed_pagerank,
+                                                        pagerank)
+    from repro_torch.graphs.algorithms.sssp import sssp
+    from repro_torch.graphs.algorithms.stconn import st_connectivity
+    from repro_torch.graphs.generators import random_weights
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import Tracer, validate_trace, wavetap
+    bfs0, sssp0, ranks0 = single
+    src, far, _, (st, col, mst) = slice_one
+    gw = random_weights(g, seed=0)
+    v = g.num_vertices
+    pallas = CommitSpec(backend="pallas", stats=False)
+    # (a) the six algorithms at stats=False and True: static pallas, then
+    # auto (a first call, which calibrates, and a warm call)
+    algs = {
+        "bfs": (lambda s: bfs(g, src, spec=s), lambda r: r.rounds,
+                lambda r: equal("auto bfs", r.dist, bfs0.dist)),
+        "sssp": (lambda s: sssp(gw, src, spec=s), lambda r: r[1],
+                 lambda r: equal("auto sssp", r[0], sssp0)),
+        "pagerank": (lambda s: pagerank(g, iters=20, spec=s),
+                     lambda r: 20,
+                     lambda r: close_ranks("auto pagerank", r[0], ranks0,
+                                           v)),
+        "coloring": (lambda s: coloring(g, seed=0, spec=s),
+                     lambda r: r[1],
+                     lambda r: equal("auto coloring",
+                                     (r[0], r[1], bool(r[2])), col)),
+        "boruvka": (lambda s: boruvka(gw, spec=s), lambda r: r[3],
+                    lambda r: equal("auto boruvka",
+                                    (r[0], r[1], int(r[2]), r[3]), mst)),
+        "st_connectivity": (lambda s: st_connectivity(g, src, far, spec=s),
+                            lambda r: r[1],
+                            lambda r: equal("auto st_connectivity",
+                                            (bool(r[0]),), (st[0],))),
+    }
+    warm = {}
+    for name, (run, rounds_of, check) in algs.items():
+        for stats in (False, True):
+            static = CommitSpec(backend="pallas", stats=stats)
+            out, t_static = timed(lambda: run(static))
+            check(out)
+            rounds = rounds_of(out)
+            spec = CommitSpec(backend="auto", stats=stats)
+            n_pol, cal = len(policies), spent[0]
+            out, t_first = timed(lambda: run(spec))
+            check(out)
+            cal, n_steps = spent[0] - cal, len(steps)
+            out, t_warm = timed(lambda: run(spec))
+            check(out)
+            pol = policies[-1][-1]
+            warm[name, stats] = t_warm
+            say(f"phase 9a: {name} stats={stats}, {rounds} rounds: static "
+                f"pallas {t_static / rounds * 1e3:.2f} ms/round, auto "
+                f"{t_warm / rounds * 1e3:.2f} (first call "
+                f"{t_first * 1e3:.1f} ms, of which calibration and races "
+                f"{cal * 1e3:.1f} ms); policy {pol.backend} "
+                f"M0={pol.ladder[pol.init_level]} adaptive={pol.adaptive}; "
+                f"{len(steps) - n_steps} feedback reads a call, M after "
+                f"each: {steps[n_steps:][:24]}")
+    tuner = AT.DEFAULT_TUNER
+    excluded = [e for e in tuner.audit
+                if e["event"] == "kernel_tiers_excluded"]
+    cals = [e for e in tuner.audit if e["event"] == "calibrate"]
+    if excluded or not cals or any(
+            not {"pallas", "fused"} <= set(e["tiers"]) for e in cals):
+        raise AssertionError(f"phase 9a: the kernel tiers were not all in "
+                             f"the candidate set: {excluded or cals}")
+    say(f"phase 9a: every auto run equals phase 4's or 8's static pallas "
+        f"output; calibration and races {spent[0]:.1f} s in all; the "
+        f"tuner's audit ({len(tuner.audit)} events, {tuner.timed_runs} "
+        f"timed runs; the kernel tiers in every calibration):")
+    for e in tuner.audit:
+        say("  audit " + json.dumps(e, sort_keys=True))
+    # (b) a second tuner on the same cache file times nothing
+    second = AT.AutoTuner()
+    for spec, state, msgs, kw, pol in policies:
+        again = real_policy_for(spec, state, msgs, tuner=second, **kw)
+        if again != pol:
+            raise AssertionError(f"phase 9b: {again} != {pol}")
+    if second.timed_runs:
+        raise AssertionError(f"phase 9b: the warm tuner timed "
+                             f"{second.timed_runs} runs")
+    say(f"phase 9b: a second AutoTuner on the cache file: {len(policies)} "
+        f"policies equal, timed_runs == 0")
+    # (c) the engine at world size 1 under auto
+    mesh = make_mesh(device=device)
+    kw = dict(capacity=ENGINE_CAPACITY, telemetry=True)
+    eng = {"distributed_bfs": (
+               lambda s, **k: distributed_bfs(mesh, g, src, spec=s, **kw,
+                                              **k),
+               lambda out: equal("auto distributed_bfs", out[0],
+                                 bfs0.dist)),
+           "distributed_pagerank": (
+               lambda s, **k: distributed_pagerank(mesh, g, iters=20,
+                                                   spec=s, **kw, **k),
+               lambda out: close_ranks("auto distributed_pagerank", out[0],
+                                       ranks0, v))}
+    clean = {}
+    for name, (run, check) in eng.items():
+        line = []
+        for label, spec in (("static pallas", pallas),
+                            ("auto, first call",
+                             CommitSpec(backend="auto", stats=False)),
+                            ("auto", CommitSpec(backend="auto",
+                                                stats=False))):
+            n_steps = len(steps)
+            out, wall = timed(lambda: run(spec))
+            res = out[-1]
+            check(out)
+            if not res.delivered_all:
+                raise AssertionError(f"phase 9c {name} ({label}): messages "
+                                     f"left undelivered")
+            clean.setdefault(name, {})[label] = wall
+            line.append(f"{label} {wall * 1e3:.1f} ms ({res.rounds} rounds, "
+                        f"{res.subrounds} sub-rounds, m_final "
+                        f"{res.m_final}, {len(steps) - n_steps} feedback "
+                        f"reads)")
+        say(f"phase 9c: {name} at C = 2^24, equal to phase 6's, every "
+            f"message delivered: " + "; ".join(line))
+    # (d) degraded mode: one injected fault, the chunk retried in place
+    run, check = eng["distributed_bfs"]
+    out, wall = timed(lambda: run(pallas, snapshot_rounds=2,
+                                  fault_injector=_drop_at_chunk_1))
+    check(out)
+    if not out[-1].degraded:
+        raise AssertionError("phase 9d: the run does not report degraded")
+    say(f"phase 9d: degraded distributed_bfs (snapshot_rounds=2, a fault "
+        f"before chunk 1) equals phase 6's: {wall * 1e3:.1f} ms against "
+        f"{clean['distributed_bfs']['static pallas'] * 1e3:.1f} ms clean, "
+        f"{out[-1].rounds} "
+        f"rounds, degraded={out[-1].degraded}")
+    # (e) the ownership protocol
+    x, k, nv = TXN_SHAPE
+    txns = np.random.default_rng(SEED).integers(0, nv, (1, x, k)).astype(
+        np.int32)
+    (visited, stats), wall = timed(lambda: run_transactions(
+        mesh, torch.from_numpy(txns).to(device), nv, capacity=1 << 18))
+    want = np.zeros(nv, bool)
+    want[txns.reshape(-1)] = True
+    if not (np.array_equal(visited.cpu().numpy(), want)
+            and stats.retries > 0):
+        raise AssertionError(f"phase 9e: run_transactions: visited differs "
+                             f"or no retries ({stats})")
+    say(f"phase 9e: run_transactions X={x}, K={k}, V={nv}: visited equals "
+        f"the transactions' vertices; {stats.rounds} rounds, "
+        f"{stats.retries} retries, {stats.bids} bids, {wall * 1e3:.1f} ms "
+        f"({wall / stats.rounds * 1e3:.2f} ms/round)")
+    # (f) the taps and the sanitizer
+    wavetap.clear()
+    r, wall = timed(lambda: bfs(g, src, spec=CommitSpec(
+        backend="auto", stats=False, trace=True)))
+    equal("traced auto bfs", r.dist, bfs0.dist)
+    commits = wavetap.records()
+    (*out, res), dwall = timed(lambda: distributed_bfs(
+        mesh, g, src, spec=CommitSpec(backend="auto", stats=False,
+                                      trace=True), **kw))
+    equal("traced distributed_bfs", out[0], bfs0.dist)
+    rounds_recs = wavetap.records()[len(commits):]
+    tracer = Tracer(enabled=True)
+    flushed = wavetap.flush_to(tracer)
+    findings = validate_trace(tracer.to_chrome())
+    if (len(commits) != r.rounds or len(rounds_recs) != res.rounds
+            or flushed != r.rounds + res.rounds or findings):
+        raise AssertionError(f"phase 9f: {len(commits)} commit records for "
+                             f"{r.rounds} rounds, {len(rounds_recs)} round "
+                             f"records for {res.rounds}; {findings}")
+    say(f"phase 9f: trace=True: auto bfs {len(commits)} commit records, "
+        f"{wall / r.rounds * 1e3:.2f} ms/round against "
+        f"{warm['bfs', False] / r.rounds * 1e3:.2f} untraced; "
+        f"distributed_bfs {len(rounds_recs)} round records, "
+        f"{dwall * 1e3:.1f} ms against "
+        f"{clean['distributed_bfs']['auto'] * 1e3:.1f} ms untraced; "
+        f"validate_trace: no findings")
+    for name in ("bfs", "pagerank"):
+        run, rounds_of, check = algs[name]
+        out, t_plain = timed(lambda: run(pallas))
+        out, t_san = timed(lambda: run(CommitSpec(backend="pallas",
+                                                  stats=False,
+                                                  sanitize=True)))
+        check(out)
+        rounds = rounds_of(out)
+        say(f"phase 9f: sanitize=True on pallas {name}: no SanitizeError; "
+            f"{t_san / rounds * 1e3:.2f} ms/round against "
+            f"{t_plain / rounds * 1e3:.2f}")
 
 
 def ssd_bound(g, L, n, p, elem):
@@ -1310,11 +1594,13 @@ def main() -> int:
         "and pagerank x V agrees with pagerank_reference (float64)")
 
     engine_launches = phase_engine(g, device, single)
-    slice_launches = phase_graph_slice(g, small, device, single)
-    del g, single, small
+    slice_launches, slice_one = phase_graph_slice(g, small, device, single)
+    tuned_launches = phase_tuned(g, device, single, slice_one)
+    del g, single, small, slice_one
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
-    launches = {name: launches.get(name, 0) + engine_launches.get(name, 0)
-                + slice_launches.get(name, 0) for name in KERNELS}
+    launches = {name: sum(part.get(name, 0) for part in (
+        launches, engine_launches, slice_launches, tuned_launches))
+        for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
 
     kernels = [dict(name=name, route="cuda", source=src_path,

@@ -24,9 +24,12 @@ Differences from :mod:`repro.core.commit`:
 * :class:`CommitSpec` has no ``interpret``: the tensors' device decides.
   On the CPU the kernel tiers run their kernels' plain versions; on a
   card they launch the CUDA kernels.
-* ``backend="auto"``, ``seed_m`` (ROADMAP Queue 1 item 4), ``sanitize``
-  (item 7) and ``trace`` (item 5) raise ``NotImplementedError``, and the
-  ``REPRO_SANITIZE``/``REPRO_TRACE`` switches are not read.
+* ``backend="auto"`` is resolved by :mod:`repro_torch.core.autotune`,
+  whose calibration times the tiers on the state's device; the kernel
+  tiers join its candidates only on a card.
+* ``sanitize`` (or ``REPRO_SANITIZE=1``) replays each commit with its
+  messages permuted (:mod:`repro_torch.analysis.sanitize`) and raises
+  ``SanitizeError`` at once on a difference.
 * Payloads are [n] per message; vector payloads come with the LM stack
   (Queue 1 item 9).  The kernel tiers cast the payload to the state's
   dtype before the launch.
@@ -36,6 +39,7 @@ Differences from :mod:`repro.core.commit`:
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -65,7 +69,10 @@ class CommitResult:
 class CommitSpec:
     """How to execute a commit — the mechanism, not the semantics.
 
-    backend:  one of :data:`BACKENDS`.
+    backend:  one of :data:`BACKENDS`, or ``"auto"``: the
+              :mod:`repro_torch.core.autotune` tuner calibrates the §5.3
+              model on the state's device (timed micro-commits) and picks
+              the backend and transaction size M*.
     m:        transaction size (messages per transaction); ``None`` = the
               whole batch is one transaction.
     sort:     coalesce by sorting messages by target before resolution
@@ -77,7 +84,19 @@ class CommitSpec:
     block_v:  bound of the ``pallas`` tier's conflict count: targets below
               V padded to ``block_v`` count (the reference kernel's state
               block).
-    seed_m, sanitize, trace: not ported yet; setting them raises.
+    seed_m:   warm-start hint for ``backend="auto"``: seed the
+              conflict-feedback ladder at this transaction size instead of
+              the calibrated M* (0 = whole batch); unlike ``m`` it does not
+              pin the size.
+    sanitize: shadow every commit with a permuted-message-order replay and
+              raise :class:`repro_torch.analysis.sanitize.SanitizeError`
+              unless the state is reorder-invariant (bit for bit; float
+              ``add`` within rtol 2e-4 / atol 1e-6).  ``REPRO_SANITIZE=1``
+              turns it on for every spec.
+    trace:    record per-commit telemetry (conflicts, applied, routed
+              messages, ladder level) through
+              :mod:`repro_torch.obs.wavetap`; ``REPRO_TRACE=1`` turns it
+              on for every spec.  Off, no tap is installed.
     """
     backend: str = "coarse"
     m: int | None = None
@@ -98,14 +117,6 @@ class CommitSpec:
         if self.tile_m < 1 or self.block_v < 1:
             raise ValueError(f"tile_m/block_v must be >= 1, got "
                              f"{self.tile_m}/{self.block_v}")
-        if self.backend == AUTO or self.seed_m is not None:
-            raise NotImplementedError(
-                "backend='auto' and seed_m come with the autotuner "
-                "(ROADMAP Queue 1 item 4)")
-        if self.sanitize or self.trace:
-            raise NotImplementedError(
-                "sanitize and trace come with observability and runtime "
-                "checks (ROADMAP Queue 1 items 5 and 7)")
 
 
 def _zero(device) -> torch.Tensor:
@@ -122,7 +133,7 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
     spec = spec if spec is not None else CommitSpec()
     if op not in OPS:
         raise ValueError(f"op {op!r} not in {OPS}")
-    if spec.backend not in BACKENDS:
+    if spec.backend not in BACKENDS + (AUTO,):
         raise ValueError(f"backend {spec.backend!r} not in "
                          f"{BACKENDS + (AUTO,)}")
     if msgs.capacity == 0:
@@ -133,10 +144,30 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
         raise NotImplementedError(
             "vector payloads come with the LM stack (ROADMAP Queue 1 "
             "item 9)")
+    if spec.backend == AUTO:
+        from repro_torch.core.autotune import resolve_spec   # no cycle
+        spec = resolve_spec(spec, state, msgs, op)
     backend = spec.backend
     if backend in ("pallas", "fused") and not _pallas_supported(state, msgs,
                                                                 op):
         backend = "coarse"
+    res = _dispatch(state, msgs, op, spec, backend)
+    if (spec.sanitize or _sanitize_env()) and msgs.capacity > 1:
+        from repro_torch.analysis.sanitize import shadow_check
+        shadow_check(state, msgs, op, spec, backend, res.state)
+    return res
+
+
+def _sanitize_env() -> bool:
+    return os.environ.get("REPRO_SANITIZE", "").lower() in (
+        "1", "true", "on", "yes")
+
+
+def _dispatch(state: torch.Tensor, msgs: Messages, op: str,
+              spec: CommitSpec, backend: str) -> CommitResult:
+    """Backend dispatch with the fallback already resolved, shared by
+    :func:`commit` and the sanitizer's replay (which must not re-enter
+    :func:`commit`, or it would shadow itself)."""
     if backend == "atomic":
         return atomic_commit(state, msgs, op, stats=spec.stats)
     if backend == "coarse":
@@ -363,6 +394,10 @@ def _resolved_commit(state, msgs: Messages, op: str, sort: bool,
         s_val = torch.where(s_valid, s_val, torch.zeros_like(s_val))
     elif op == "or":
         s_val = (s_valid & (s_val != 0)).to(torch.uint8)
+    elif s_val.dtype == torch.bool:
+        # CUDA has no bool scatter-reduce; min/max of 0/1 are the same on
+        # uint8 (the tuner calibrates `min` on a bool state leaf)
+        s_val = s_val.to(torch.uint8)
 
     true1 = torch.ones(1, dtype=torch.bool, device=state.device)
     first = torch.cat([true1, s_idx[1:] != s_idx[:-1]])
@@ -384,12 +419,18 @@ def _resolved_commit(state, msgs: Messages, op: str, sort: bool,
     return CommitResult(new, success, conflicts, applied)
 
 
-def _first_winner(state, msgs: Messages):
+def _first_winner(state, msgs: Messages, rank=None):
     """(winner_rank [V], takes [V]) for first-writer-wins into empty (-1)
-    slots; in-batch ties -> lowest message index."""
+    slots; in-batch ties -> lowest message index.
+
+    ``rank`` overrides the per-message tiebreak key (default: position in
+    the batch); the sanitizer's permuted replay passes the original
+    indices so that the winner does not depend on the order."""
     v = state.shape[0]
     n = msgs.capacity
-    rank = torch.arange(n, dtype=torch.int32, device=state.device)
+    rank = (torch.arange(n, dtype=torch.int32, device=state.device)
+            if rank is None else torch.as_tensor(
+                rank, device=state.device).to(torch.int32))
     winner = torch.full((v + 1,), _INT32_MAX, dtype=torch.int32,
                         device=state.device)
     winner = winner.scatter_reduce_(0, _slot(msgs.valid, msgs.target, v),

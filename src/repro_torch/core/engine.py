@@ -27,20 +27,26 @@ This module mirrors :mod:`repro.core.engine`, with these differences:
   psum'd pending count per sub-round, a round loop one ``active`` flag
   per round.  ``DistributedResult.rounds``/``subrounds`` are ints and
   ``delivered_all`` a bool.
-* ``run_distributed`` runs single-shot.  These raise
-  ``NotImplementedError``: ``snapshot_rounds``/``fault_injector``
-  (degraded mesh, ROADMAP Queue 1 item 3), ``REPRO_TRACE`` wave taps
-  (item 5); ``CommitSpec`` itself refuses ``backend="auto"`` (item 4)
-  and ``trace`` (item 5).  The waverace lint capture is not ported.
+* ``backend="auto"`` calibrates once per run on every rank, and rank
+  0's policy is broadcast so that every rank commits alike.  The ladder
+  level is a Python ``int`` the round loop carries; each round's psum'd
+  conflicts and messages move it (one host read per round).
+* The round tap (``CommitSpec(trace=True)`` or ``REPRO_TRACE=1``) is a
+  host hook: one record per round on each rank, in that rank's
+  collector.
+* Degraded-mesh mode is a simulation over process groups; see
+  :func:`run_distributed`.  ``DistributedResult.shards`` names the shard
+  count the run finished on.
+* The waverace lint capture is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.core import autotune as AT
 from repro_torch.core import commit as C
 from repro_torch.core.coalescing import (BucketPlan, fuse_keys,
                                          gather_from_buckets,
@@ -50,6 +56,7 @@ from repro_torch.core.coalescing import (BucketPlan, fuse_keys,
 from repro_torch.core.messages import make_messages
 from repro_torch.core.tree import tree_flatten, tree_map, tree_unflatten
 from repro_torch.graphs.csr import Graph, GraphSet, partition_tensors
+from repro_torch.obs import trace as OT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +69,7 @@ class EngineConfig:
     op: str = "min"
     spec: C.CommitSpec | None = None   # commit backend; None = coarse(m)
     batch: Any = None       # default batch axis of waves (None = unbatched)
+    tuner: AT.TunerPolicy | None = None  # set by run_distributed for "auto"
 
     @property
     def num_shards(self) -> int:
@@ -73,8 +81,25 @@ class EngineConfig:
             return self.spec
         return C.CommitSpec(backend="coarse", m=self.m)
 
-    def _commit(self, state, msgs):
+    def _commit(self, state, msgs, level=None):
+        """Owner-side commit: the calibrated ladder when a tuner policy is
+        bound (``backend="auto"``), the static spec otherwise."""
+        if self.tuner is not None and level is not None:
+            return AT.ladder_commit(state, msgs, self.op, self.tuner, level)
         return C.commit(state, msgs, self.op, self.commit_spec)
+
+
+def _fused_commit_leaf(ecfg: EngineConfig, st, tgt, payload, lane, base,
+                       width, level):
+    """Owner-side fused route+commit of one state/payload leaf: the
+    calibrated ladder when a tuner policy is bound, the static spec
+    otherwise."""
+    if ecfg.tuner is not None:
+        return AT.ladder_fused_site(st, tgt, payload, ecfg.op, ecfg.tuner,
+                                    level, lane=lane, base=base,
+                                    width=width)
+    return C.fused_commit_site(st, tgt, payload, ecfg.op, ecfg.commit_spec,
+                               lane=lane, base=base, width=width)
 
 
 # ---------------------------------------------------------------------------
@@ -131,12 +156,13 @@ def _all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def route_wave(ecfg: EngineConfig, state_l, target, payload, pending,
-               major=None, batch=None):
+               level=None, major=None, batch=None):
     """One coalescing sub-round (overflow beyond C is not requeued here;
     :func:`wave_until_delivered` does that).
 
     state_l: tree of [block] local owner slices; payload: matching tree of
-    [n] fields; target: [n] global vertex ids; pending: [n] bool.
+    [n] fields; target: [n] global vertex ids; pending: [n] bool; level:
+    the ladder index of an ``ecfg.tuner`` commit.
     ``batch``/``major``: a batch axis and [n] int32 item ids.  With
     ``batch.wave_width`` W > 1 (query lanes) the ids ride the exchange,
     state leaves are vertex-major [block * W] slices, and owners commit on
@@ -173,8 +199,9 @@ def route_wave(ecfg: EngineConfig, state_l, target, payload, pending,
     pl_leaves, pdef = tree_flatten(rp)
     if pdef != tdef:
         raise ValueError("state and payload trees differ in structure")
-    spec = ecfg.commit_spec
-    fused = [spec.backend == "fused" and C.fused_site_supported(st, p)
+    backend = (ecfg.tuner.backend if ecfg.tuner is not None
+               else ecfg.commit_spec.backend)
+    fused = [backend == "fused" and C.fused_site_supported(st, p)
              for st, p in zip(st_leaves, pl_leaves)]
     local_idx = None
     if not all(fused):
@@ -186,12 +213,12 @@ def route_wave(ecfg: EngineConfig, state_l, target, payload, pending,
     conflicts = None
     for i, (st, pl) in enumerate(zip(st_leaves, pl_leaves)):
         if fused[i]:
-            res = C.fused_commit_site(st, rt_flat, pl.reshape(-1), ecfg.op,
-                                      spec, lane=rl_flat,
-                                      base=shard * ecfg.block, width=width)
+            res = _fused_commit_leaf(ecfg, st, rt_flat, pl.reshape(-1),
+                                     rl_flat, shard * ecfg.block, width,
+                                     level)
         else:
             res = ecfg._commit(st, make_messages(local_idx, pl.reshape(-1),
-                                                 valid))
+                                                 valid), level)
         new_st.append(res.state)
         if i == 0:
             # slot collisions depend on (target, valid) only, which every
@@ -213,13 +240,14 @@ def _pending_count(pending, mesh) -> int:
 
 
 def wave_until_delivered(ecfg: EngineConfig, state_l, target, payload,
-                         valid, max_subrounds: int = 64, major=None,
-                         batch=None):
+                         valid, max_subrounds: int = 64, level=None,
+                         major=None, batch=None):
     """Deliver all messages: sub-rounds until nothing is pending.
 
     Returns (state_l, success tree, conflicts, subrounds,
     delivered_all).  ``delivered_all`` is False when ``max_subrounds`` was
-    exhausted with messages still pending; callers must surface it."""
+    exhausted with messages still pending; callers must surface it.
+    ``level`` is the wave's ladder index when ``ecfg.tuner`` is set."""
     n = target.shape[0]
     st_leaves, tdef = tree_flatten(state_l)
     success = [torch.zeros((n,), dtype=torch.bool, device=target.device)
@@ -230,7 +258,7 @@ def wave_until_delivered(ecfg: EngineConfig, state_l, target, payload,
     left = _pending_count(pending, ecfg.mesh)
     while left > 0 and subrounds < max_subrounds:
         state_l, kept, succ, cf = route_wave(ecfg, state_l, target, payload,
-                                             pending, major, batch)
+                                             pending, level, major, batch)
         success = [torch.where(kept, sn, so)
                    for sn, so in zip(tree_flatten(succ)[0], success)]
         pending = pending & ~kept
@@ -379,10 +407,11 @@ class WaveRuntime:
     every wave and gather of the round."""
 
     def __init__(self, ecfg: EngineConfig, layout: ShardLayout,
-                 max_subrounds: int):
+                 max_subrounds: int, level: int | None = None):
         self.ecfg = ecfg
         self.layout = layout
         self.max_subrounds = max_subrounds
+        self.level = level          # the tuner's ladder index
         device = ecfg.mesh.device
         self.conflicts = torch.zeros((), dtype=torch.int32, device=device)
         self.subrounds = 0
@@ -415,7 +444,7 @@ class WaveRuntime:
         ecfg = dataclasses.replace(self.ecfg, op=op)
         state_l, success, cf, sr, dall = wave_until_delivered(
             ecfg, state_l, target, payload, valid, self.max_subrounds,
-            major, batch)
+            self.level, major, batch)
         self.conflicts = self.conflicts + cf
         self.subrounds += sr
         self.messages = self.messages + self.psum(
@@ -468,9 +497,12 @@ class DistributedResult:
     conflicts: torch.Tensor  # int32, summed over every wave and shard
     subrounds: int
     delivered_all: bool
-    m_final: int            # -1: static spec, no tuner
+    m_final: int            # final ladder transaction size M (0 = whole
+    #                         batch, -1 = static spec, no tuner)
     capacity: int           # the coalescing factor C the run used
-    degraded: bool = False
+    degraded: bool = False  # True when the run survived a simulated host
+    #                         drop (mesh shrink or retry from a snapshot)
+    shards: int = 1         # the shard count the run finished on
 
 
 def telemetry_return(base, res: DistributedResult, telemetry: bool):
@@ -491,6 +523,271 @@ def _edge_slice(arrays, rank: int, block: int, device) -> EdgeSlice:
                      my_src=(src.long() - rank * block).clamp(0, block - 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class _Carry:
+    """What the round loop carries from one round to the next."""
+    conflicts: torch.Tensor
+    subrounds: int
+    delivered_all: bool
+    level: int
+    rounds: int
+    active: bool
+
+
+def _agree(policy: AT.TunerPolicy, mesh) -> AT.TunerPolicy:
+    """Rank 0's calibrated choice, on every rank: each rank times its own
+    calibration, and ranks that chose differently would commit
+    differently."""
+    if _one_shard(mesh):
+        return policy
+    import torch.distributed as dist
+    pick = torch.tensor([C.BACKENDS.index(policy.backend),
+                         policy.init_level, int(policy.adaptive)],
+                        dtype=torch.int64, device=mesh.device)
+    dist.broadcast(pick, src=dist.get_global_rank(mesh.group, 0),
+                   group=mesh.group)
+    backend, level, adaptive = pick.tolist()
+    return dataclasses.replace(policy, backend=C.BACKENDS[backend],
+                               init_level=level, adaptive=bool(adaptive))
+
+
+class _Runner:
+    """One round loop over one mesh: the partition and layout, this
+    rank's edge slice, the calibrated tuner policy and the round tap.
+    ``run`` takes the round cap as an argument, so the same runner serves
+    the single-shot run and the chunks of a degraded run."""
+
+    def __init__(self, alg: AlgorithmSpec, mesh, g, *, axis: str,
+                 capacity: int, m, spec, batch, max_subrounds: int,
+                 edges=None):
+        self.alg, self.mesh, self.max_subrounds = alg, mesh, max_subrounds
+        self.P = mesh.shape[axis]
+        arrays, part = (edges if edges is not None
+                        else partition_tensors(g, self.P))
+        self.layout = ShardLayout(self.P, part.block, arrays[0].shape[1],
+                                  g.num_vertices, g.num_edges)
+        ecfg = EngineConfig(mesh, part.block, capacity, axis=axis, m=m,
+                            spec=spec, batch=batch)
+        self.state0, self.scalars0 = alg.init(g, self.layout)
+        self.tuner = None
+        if ecfg.commit_spec.backend == C.AUTO:
+            # calibration before the loop: a rank's commits see a [block]
+            # state slice and up to P*C routed messages a sub-round
+            leaf = tree_flatten(self.state0)[0][0]
+            like = torch.empty((part.block,), dtype=leaf.dtype,
+                               device=mesh.device)
+            self.tuner = _agree(AT.policy_for(
+                ecfg.commit_spec, like,
+                n=min(self.P * capacity, g.num_edges or 1),
+                axis_width=batch.race_width if batch is not None else 1),
+                mesh)
+            ecfg = dataclasses.replace(ecfg, spec=None, tuner=self.tuner)
+        self.ecfg = ecfg
+        self.max_rounds = int(alg.max_rounds(g, self.layout))
+        self.edges = _edge_slice(arrays, _axis_index(mesh), part.block,
+                                 mesh.device)
+        # the round tap, decided when the run starts
+        self.tap = None
+        if (spec is not None and spec.trace) or OT.trace_enabled():
+            from repro_torch.obs import wavetap
+            self.tap = wavetap.round_recorder(alg.name)
+
+    def local(self, state):
+        """This rank's slices of a global state tree."""
+        rank = _axis_index(self.mesh)
+        return tree_map(lambda a: a.reshape(
+            (self.P, -1) + tuple(a.shape[1:]))[rank], state)
+
+    def gather(self, state_l):
+        """The global state tree, from every rank's slices."""
+        return tree_map(lambda a: _all_gather_rows(a, self.mesh), state_l)
+
+    def zero_carry(self) -> _Carry:
+        return _Carry(torch.zeros((), dtype=torch.int32,
+                                  device=self.mesh.device), 0, True,
+                      self.tuner.init_level if self.tuner else 0, 0, True)
+
+    def run(self, state_l, scalars, carry: _Carry, limit: int):
+        """Rounds until ``active`` is False or ``limit`` rounds are done."""
+        shard = _axis_index(self.mesh)
+        while carry.active and carry.rounds < limit:
+            rt = WaveRuntime(self.ecfg, self.layout, self.max_subrounds,
+                             level=carry.level)
+            state_l, scalars, active = self.alg.round_fn(
+                rt, self.edges, state_l, scalars, carry.rounds)
+            if self.tap is not None:
+                self.tap(carry.rounds, rt.conflicts, rt.subrounds,
+                         rt.messages, carry.level, shard)
+            level = carry.level
+            if self.tuner is not None:
+                # feedback: this round's psum'd conflicts against routed
+                # messages move the ladder alike on every rank
+                level = AT.next_level(self.tuner, level, rt.conflicts,
+                                      rt.messages)
+            carry = _Carry(carry.conflicts + rt.conflicts,
+                           carry.subrounds + rt.subrounds,
+                           carry.delivered_all and rt.delivered_all, level,
+                           carry.rounds + 1, bool(active))
+        return state_l, scalars, carry
+
+    def result(self, state, scalars, carry: _Carry, capacity: int,
+               degraded: bool) -> DistributedResult:
+        m_final = -1
+        if self.tuner is not None:
+            m_final = self.tuner.ladder[self.tuner.clip(carry.level)] or 0
+        return DistributedResult(
+            state=state, scalars=scalars, rounds=carry.rounds,
+            conflicts=carry.conflicts, subrounds=carry.subrounds,
+            delivered_all=carry.delivered_all, m_final=m_final,
+            capacity=int(capacity), degraded=degraded, shards=self.P)
+
+
+def _remap_state(alg: AlgorithmSpec, g, old_layout: ShardLayout,
+                 new_layout: ShardLayout, state):
+    """Re-home a snapshot's global state onto a smaller mesh.
+
+    The 1-D partition puts vertex v at global index v with padding only
+    at the tail, so vertex-state leaves ([vpad, ...]) carry over by
+    value: a fresh ``alg.init`` on the new layout supplies the padding
+    rows and the first V rows take the snapshot's.  Leaves not shaped by
+    vpad (per-edge state: the partition moved under them) cannot be
+    re-homed; returns None => restart from round 0."""
+    v = g.num_vertices
+    fresh, _ = alg.init(g, new_layout)
+    old, new = tree_flatten(state)[0], tree_flatten(fresh)
+    conforms = all(
+        o.dim() >= 1 and o.shape[0] == old_layout.vpad
+        and n.shape[0] == new_layout.vpad and o.shape[1:] == n.shape[1:]
+        for o, n in zip(old, new[0]))
+    if not conforms:
+        return None
+    return tree_unflatten(new[1], [torch.cat([o[:v], n[v:]])
+                                   for o, n in zip(old, new[0])])
+
+
+# Degraded mode's messages from the original group's rank 0 to the ranks
+# that left it: shrink again, the run is done, or the survivors gave up.
+_SHRINK, _DONE, _ABORT = 1, 2, 3
+
+
+def _control(origin, kind: int = 0, size: int = 0) -> tuple[int, int]:
+    """Broadcast ``(kind, size)`` from the original group's rank 0 to
+    every rank of it (survivors send, ranks that left receive)."""
+    import torch.distributed as dist
+    msg = torch.tensor([kind, size], dtype=torch.int64, device=origin.device)
+    dist.broadcast(msg, src=dist.get_global_rank(origin.group, 0),
+                   group=origin.group)
+    kind, size = msg.tolist()
+    return kind, size
+
+
+def _share_result(origin, res: DistributedResult | None):
+    """Broadcast rank 0's result to every rank of the original group,
+    through the host; each rank gets it on its own device."""
+    import torch.distributed as dist
+
+    def move(tree, device):
+        return tree_map(lambda a: a.to(device)
+                        if isinstance(a, torch.Tensor) else a, tree)
+    box = [None]
+    if res is not None:
+        box = [dataclasses.replace(res, state=move(res.state, "cpu"),
+                                   scalars=move(res.scalars, "cpu"),
+                                   conflicts=res.conflicts.cpu())]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(origin.group,
+                                                             0),
+                               group=origin.group)
+    got = box[0]
+    return dataclasses.replace(got, state=move(got.state, origin.device),
+                               scalars=move(got.scalars, origin.device),
+                               conflicts=got.conflicts.to(origin.device))
+
+
+def _follow(origin) -> DistributedResult:
+    """A rank that left the mesh: take part in every later shrink (a
+    new process group is made by every process of the job), then return
+    the survivors' result."""
+    from repro_torch.launch.mesh import sub_mesh
+    while True:
+        kind, size = _control(origin)
+        if kind == _SHRINK:
+            sub_mesh(origin, size)
+        elif kind == _DONE:
+            return _share_result(origin, None)
+        else:
+            raise RuntimeError("degraded run: the surviving ranks exceeded "
+                               "max_faults")
+
+
+def _run_degraded(alg, g, r: _Runner, kw: dict, *, snapshot_rounds,
+                  fault_injector, max_faults: int) -> DistributedResult:
+    """The chunked round loop of degraded-mesh mode (see
+    :func:`run_distributed`)."""
+    from repro_torch.launch.mesh import sub_mesh
+    origin = r.mesh
+    if origin.size > 1:
+        import torch.distributed as dist
+        if dist.get_world_size() != origin.size:
+            raise ValueError("degraded-mesh mode over several ranks needs "
+                             "a mesh over every process of the job (a "
+                             "shrink makes a new process group)")
+    state, scalars, carry = r.local(r.state0), r.scalars0, r.zero_carry()
+    snap = (tree_map(torch.clone, r.state0), scalars, carry)
+    chunk = snapshot_rounds if snapshot_rounds else max(r.max_rounds, 1)
+    degraded, faults, chunk_i = False, 0, 0
+    while carry.active and carry.rounds < r.max_rounds:
+        limit = min(carry.rounds + chunk, r.max_rounds)
+        try:
+            if fault_injector is not None:
+                fault_injector(chunk_i, carry.rounds)
+            state, scalars, carry = r.run(state, scalars, carry, limit)
+            # the round snapshot: every rank gathers the global state
+            snap = (tree_map(torch.clone, r.gather(state)), scalars, carry)
+        except KeyboardInterrupt:
+            raise
+        except Exception:
+            faults += 1
+            if faults > max_faults:
+                if r.P < origin.size:
+                    _control(origin, _ABORT)
+                raise
+            degraded = True
+            tr = OT.get_tracer()
+            if tr.active:
+                tr.instant("mesh_shrink", cat="engine",
+                           args={"alg": alg.name, "P": r.P,
+                                 "survivors": max(r.P - 1, 1),
+                                 "rounds_done": carry.rounds,
+                                 "faults": faults})
+            global_state, scalars, carry = snap      # last whole chunk
+            if r.P > 1:
+                if r.P < origin.size:
+                    _control(origin, _SHRINK, r.P - 1)
+                new_mesh = sub_mesh(origin, r.P - 1)
+                if new_mesh is None:                 # this rank left
+                    return _follow(origin)
+                old_layout = r.layout
+                r = _Runner(alg, new_mesh, g, **kw)
+                remapped = _remap_state(alg, g, old_layout, r.layout,
+                                        global_state)
+                if remapped is None:
+                    # per-edge state cannot be re-homed: restart the
+                    # query from round 0 on the surviving mesh
+                    global_state, scalars = r.state0, r.scalars0
+                    carry = r.zero_carry()
+                else:
+                    global_state = remapped
+            # P == 1: nothing to shrink; retry the snapshot in place
+            state = r.local(tree_map(torch.clone, global_state))
+        chunk_i += 1
+    res = r.result(r.gather(state), scalars, carry, kw["capacity"],
+                   degraded)
+    if r.P < origin.size:
+        _control(origin, _DONE)
+        _share_result(origin, res)
+    return res
+
+
 def run_distributed(alg: AlgorithmSpec, mesh, g, *,
                     capacity: int | str = 4096,
                     m: int | None = None, axis: str = "data",
@@ -498,7 +795,8 @@ def run_distributed(alg: AlgorithmSpec, mesh, g, *,
                     max_subrounds: int = 64,
                     edges=None, batch=None,
                     snapshot_rounds: int | None = None,
-                    fault_injector=None) -> DistributedResult:
+                    fault_injector=None,
+                    max_faults: int = 8) -> DistributedResult:
     """Execute ``alg`` over the ``mesh[axis]`` shards: the one harness
     behind every ``distributed_*`` algorithm.
 
@@ -510,14 +808,32 @@ def run_distributed(alg: AlgorithmSpec, mesh, g, *,
     M; ``capacity="auto"`` sizes C with :func:`auto_capacity`.  ``edges``
     takes a precomputed ``partition_edges(g, mesh.shape[axis])`` (numpy
     arrays or tensors); ``batch`` is the run's default batch axis.
+    ``spec=CommitSpec(backend="auto")`` calibrates once per run (backend
+    and ladder seed M*), then each round's psum'd conflicts move the
+    transaction size; ``DistributedResult.m_final`` reports where it
+    ended.
 
     ``g`` may be a :class:`repro_torch.graphs.csr.GraphSet`: the run
     executes over its disjoint-union graph, and ``batch`` defaults to
-    the set's :class:`~repro_torch.core.coalescing.GraphBatch`."""
-    if snapshot_rounds is not None or fault_injector is not None:
-        raise NotImplementedError(
-            "degraded-mesh mode (snapshot_rounds, fault_injector) is not "
-            "ported yet (ROADMAP Queue 1 item 3)")
+    the set's :class:`~repro_torch.core.coalescing.GraphBatch`.
+
+    **Degraded-mesh mode**, a simulation of a host drop as in the
+    reference.  ``snapshot_rounds`` chunks the round loop; at every chunk
+    boundary every rank all-gathers the global state as the round
+    snapshot.  ``fault_injector(chunk, rounds_done)`` runs on every rank
+    before each chunk, with the same arguments, and must raise on all of
+    them or on none.  A raise shrinks the mesh by its last rank (a new
+    process group over the first P - 1 ranks; every process of the job
+    takes part, so the mesh must span the job), re-homes the last
+    snapshot onto the smaller layout (:func:`_remap_state`; per-edge
+    state restarts from round 0) and finishes there; at P == 1 the chunk
+    is retried in place.  The dropped rank leaves the waves, takes part
+    in any later shrink, and returns the survivors' final result, which
+    rank 0 broadcasts over the original group.  More than ``max_faults``
+    faults re-raise on every rank.  ``DistributedResult.degraded`` reports
+    a fault, and the ``mesh_shrink`` instant goes to the process tracer.
+    With neither parameter set the loop runs single-shot, with no
+    snapshot."""
     if isinstance(g, GraphSet):
         batch = batch if batch is not None else g.axis
         g = g.union()
@@ -525,40 +841,21 @@ def run_distributed(alg: AlgorithmSpec, mesh, g, *,
         raise NotImplementedError(
             f"run_distributed takes a Graph or a GraphSet, not "
             f"{type(g).__name__}; wrap a list of graphs in GraphSet")
-    if os.environ.get("REPRO_TRACE", "").strip() not in ("", "0"):
-        raise NotImplementedError(
-            "REPRO_TRACE wave taps come with observability (ROADMAP "
-            "Queue 1 item 5)")
     P = mesh.shape[axis]
     auto_cap = capacity == "auto"
     if auto_cap:
         capacity = auto_capacity(g, P)
-    arrays, part = edges if edges is not None else partition_tensors(g, P)
-    layout = ShardLayout(P, part.block, arrays[0].shape[1], g.num_vertices,
-                         g.num_edges)
-    ecfg = EngineConfig(mesh, part.block, capacity, axis=axis, m=m,
-                        spec=spec, batch=batch)
-    state, scalars = alg.init(g, layout)
-    rank = _axis_index(mesh)
-    state = tree_map(lambda a: a.reshape((P, -1) + tuple(a.shape[1:]))[rank],
-                     state)
-    edge_slice = _edge_slice(arrays, rank, part.block, mesh.device)
-    max_rounds = int(alg.max_rounds(g, layout))
-    conflicts = torch.zeros((), dtype=torch.int32, device=mesh.device)
-    subrounds, delivered_all, rounds, active = 0, True, 0, True
-    while active and rounds < max_rounds:
-        rt = WaveRuntime(ecfg, layout, max_subrounds)
-        state, scalars, active = alg.round_fn(rt, edge_slice, state,
-                                              scalars, rounds)
-        conflicts = conflicts + rt.conflicts
-        subrounds += rt.subrounds
-        delivered_all = delivered_all and rt.delivered_all
-        rounds += 1
-        active = bool(active)
-    state = tree_map(lambda a: _all_gather_rows(a, mesh), state)
+    kw = dict(axis=axis, capacity=capacity, m=m, spec=spec, batch=batch,
+              max_subrounds=max_subrounds)
+    r = _Runner(alg, mesh, g, edges=edges, **kw)
+    if snapshot_rounds is not None or fault_injector is not None:
+        res = _run_degraded(alg, g, r, kw, snapshot_rounds=snapshot_rounds,
+                            fault_injector=fault_injector,
+                            max_faults=max_faults)
+    else:
+        state, scalars, carry = r.run(r.local(r.state0), r.scalars0,
+                                      r.zero_carry(), r.max_rounds)
+        res = r.result(r.gather(state), scalars, carry, capacity, False)
     if auto_cap:
-        _capacity_feedback(g, P, capacity, subrounds, rounds)
-    return DistributedResult(state=state, scalars=scalars, rounds=rounds,
-                             conflicts=conflicts, subrounds=subrounds,
-                             delivered_all=delivered_all, m_final=-1,
-                             capacity=int(capacity))
+        _capacity_feedback(g, P, capacity, res.subrounds, res.rounds)
+    return res

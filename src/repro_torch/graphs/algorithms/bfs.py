@@ -51,7 +51,7 @@ def bfs(g: Graph, source: int, *, commit: str = "coarse", m: int | None = None,
     dist[source] = 0
     frontier = torch.zeros((v,), dtype=torch.bool, device=g.device)
     frontier[source] = True
-    step, lvl = AT.make_commit_step(spec, "min", dist)
+    step, lvl = AT.make_commit_step(spec, "min", dist, n=g.num_edges)
     zero = torch.zeros((), dtype=torch.int64, device=g.device)
     nmsg, ncf, nap = zero, zero, zero
     rounds = 0
@@ -87,7 +87,8 @@ def multi_source_bfs(g: Graph, sources, *, commit: str = "coarse",
     frontier = torch.zeros((lanes, v), dtype=torch.bool, device=g.device)
     frontier[lidx, sources] = True
     dst_l = g.dst.expand(lanes, g.num_edges)
-    step, lvl = AT.make_commit_step(spec, "min", dist.reshape(-1))
+    step, lvl = AT.make_commit_step(spec, "min", dist.reshape(-1),
+                                    n=lanes * g.num_edges, axis_width=lanes)
     zero = torch.zeros((), dtype=torch.int64, device=g.device)
     nmsg, ncf, nap = zero, zero, zero
     rounds = 0
@@ -115,8 +116,8 @@ def distributed_bfs(mesh, g: Graph, source, *, capacity: int | str = 4096,
 
     Returns (dist [V], rounds); ``telemetry=True`` appends the
     :class:`~repro_torch.core.engine.DistributedResult`.
-    ``snapshot_rounds``/``fault_injector`` raise (degraded mesh is not
-    ported)."""
+    ``snapshot_rounds``/``fault_injector`` enable degraded-mesh mode (see
+    :func:`repro_torch.core.engine.run_distributed`)."""
     dev = mesh.device
 
     def init(g, layout):
@@ -160,7 +161,10 @@ def distributed_multi_source_bfs(mesh, g: Graph, sources, *,
     Vertex state is vertex-major [vpad * L] (all lanes of a vertex live on
     its owner), lane ids ride the coalescing buckets as one more field,
     and owners commit on composite local keys.  Returns (dist [L, V],
-    rounds); ``telemetry=True`` appends the DistributedResult."""
+    rounds); ``telemetry=True`` appends the DistributedResult.
+    ``snapshot_rounds``/``fault_injector`` enable degraded-mesh mode (the
+    [vpad * L] state is not vpad-shaped, so a shrink restarts the query
+    from round 0 on the surviving mesh)."""
     dev = mesh.device
     sources = torch.as_tensor(sources, device=dev).long()
     lanes = sources.shape[0]

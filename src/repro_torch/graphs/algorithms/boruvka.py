@@ -145,11 +145,15 @@ def batched_over_graphs_boruvka(gs, *, spec: C.CommitSpec | None = None,
 def distributed_boruvka_forest(mesh, g: Graph, *, capacity: int = 4096,
                                m: int | None = None, axis: str = "data",
                                spec: C.CommitSpec | None = None,
-                               max_subrounds: int = 64, batch=None):
+                               max_subrounds: int = 64, batch=None,
+                               snapshot_rounds: int | None = None,
+                               fault_injector=None):
     """The distributed contraction loop behind :func:`distributed_boruvka`
     and the graph-batched entry point.  Returns (comp [V], in_mst bool [E]
     in the original edge order, rounds, DistributedResult); ``batch`` is
-    the run's batch axis."""
+    the run's batch axis.  ``snapshot_rounds``/``fault_injector`` run it
+    in degraded-mesh mode, where a shrink restarts it from round 0 (its
+    per-edge selection cannot be re-homed)."""
     dev = mesh.device
     v, e_tot = g.num_vertices, g.num_edges
     jump = max(int(v).bit_length(), 1)
@@ -200,9 +204,14 @@ def distributed_boruvka_forest(mesh, g: Graph, *, capacity: int = 4096,
     parts = partition_tensors(g, mesh.shape[axis])   # shared with the engine
     res = run_distributed(alg, mesh, g, capacity=capacity, m=m, axis=axis,
                           spec=spec, max_subrounds=max_subrounds,
-                          edges=parts, batch=batch)
+                          edges=parts, batch=batch,
+                          snapshot_rounds=snapshot_rounds,
+                          fault_injector=fault_injector)
     comp = res.state["comp"][:v]
-    # map the shard slots' selections back to original edge ids
+    # map the shard slots' selections back to original edge ids, in the
+    # layout the run finished on (a degraded run ends on fewer shards)
+    if res.shards != mesh.shape[axis]:
+        parts = partition_tensors(g, res.shards)
     (_, _, _, valid, eid), _ = parts
     slots = res.state["in_mst"].reshape(valid.shape)
     sel = torch.zeros((e_tot,), dtype=torch.bool, device=dev)
@@ -213,7 +222,9 @@ def distributed_boruvka_forest(mesh, g: Graph, *, capacity: int = 4096,
 def distributed_boruvka(mesh, g: Graph, *, capacity: int = 4096,
                         m: int | None = None, axis: str = "data",
                         spec: C.CommitSpec | None = None,
-                        max_subrounds: int = 64, telemetry: bool = False):
+                        max_subrounds: int = 64, telemetry: bool = False,
+                        snapshot_rounds: int | None = None,
+                        fault_injector=None):
     """Boruvka MST on the wave engine, FR&MF rounds: two ``min`` waves
     select each component's lexicographically least outgoing edge
     (weight, then original edge id, so ties break as in the single-shard
@@ -221,10 +232,13 @@ def distributed_boruvka(mesh, g: Graph, *, capacity: int = 4096,
     contracts the forest through remote gathers.
 
     Returns (comp [V], weight, n_edges, rounds); ``telemetry=True``
-    appends the DistributedResult."""
+    appends the DistributedResult.  ``snapshot_rounds``/``fault_injector``
+    run it in degraded-mesh mode (see
+    :func:`repro_torch.core.engine.run_distributed`)."""
     comp, sel, rounds, res = distributed_boruvka_forest(
         mesh, g, capacity=capacity, m=m, axis=axis, spec=spec,
-        max_subrounds=max_subrounds)
+        max_subrounds=max_subrounds, snapshot_rounds=snapshot_rounds,
+        fault_injector=fault_injector)
     weight, n_edges = _dedupe_mst_pairs(g, sel.to(g.device))
     out = (comp, weight, n_edges, rounds)
     return telemetry_return(out, res, telemetry)

@@ -30,7 +30,7 @@ def _run(g: Graph, rank, update, *, d: float, iters: int,
     acc0 = torch.zeros((g.num_vertices,), dtype=torch.float32,
                        device=g.device)
     ones = torch.ones_like(g.src, dtype=torch.bool)
-    step, lvl = AT.make_commit_step(spec, "add", acc0)
+    step, lvl = AT.make_commit_step(spec, "add", acc0, n=g.num_edges)
     conflicts = torch.zeros((), dtype=torch.int64, device=g.device)
     for _ in range(iters):
         contrib = d * rank[g.src] / deg[g.src]

@@ -33,7 +33,7 @@ def sssp(g: Graph, source: int, *, commit: str = "coarse",
     dist[source] = 0.0
     frontier = torch.zeros((v,), dtype=torch.bool, device=g.device)
     frontier[source] = True
-    step, lvl = AT.make_commit_step(spec, "min", dist)
+    step, lvl = AT.make_commit_step(spec, "min", dist, n=g.num_edges)
     rounds = 0
     while rounds < v and bool(frontier.any()):
         active = frontier[g.src]
@@ -61,7 +61,8 @@ def multi_source_sssp(g: Graph, sources, *, commit: str = "coarse",
     frontier = torch.zeros((lanes, v), dtype=torch.bool, device=g.device)
     frontier[lidx, sources] = True
     dst_l = g.dst.expand(lanes, g.num_edges)
-    step, lvl = AT.make_commit_step(spec, "min", dist.reshape(-1))
+    step, lvl = AT.make_commit_step(spec, "min", dist.reshape(-1),
+                                    n=lanes * g.num_edges, axis_width=lanes)
     rounds = 0
     while rounds < v and bool(frontier.any()):
         active = frontier[:, g.src]

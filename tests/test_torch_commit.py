@@ -192,13 +192,6 @@ def test_commit_rejects_unknown_op_and_backend():
         TC.CommitSpec(m=0)
 
 
-@pytest.mark.parametrize("kw", [dict(backend="auto"), dict(seed_m=4),
-                                dict(sanitize=True), dict(trace=True)])
-def test_unported_spec_values_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.CommitSpec(**kw)
-
-
 def test_commit_step_is_static_passthrough():
     state = torch.full((8,), 100, dtype=torch.int32)
     msgs = make_messages(torch.tensor([3, 3, 5]),

@@ -747,3 +747,110 @@ def test_first_and_or_match_plain_on_graph_rounds(cuda, stats):
                 assert int(got_c) == int(exp_c), op
             assert torch.equal(got, exp), op
             assert not torch.equal(got, state), op
+
+
+# -- the tuned, traced and sanitised commit on the card ---------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["min", "max"])
+@pytest.mark.parametrize("backend", ["atomic", "coarse"])
+def test_bool_state_min_max_on_card(cuda, op, backend):
+    """The tuner calibrates ``min`` on whatever dtype a state leaf has,
+    bool included; CUDA has no bool scatter-reduce."""
+    gen = torch.Generator().manual_seed(11)
+    state = torch.rand(97, generator=gen) < 0.5
+    msgs = make_messages(torch.randint(0, 97, (400,), generator=gen),
+                         torch.rand(400, generator=gen) < 0.5)
+    spec = CommitSpec(backend=backend, stats=False)
+    exp = commit(state, msgs, op, spec).state
+    got = commit(state.to(cuda), _to(msgs, cuda), op, spec).state
+    assert torch.equal(got.cpu(), exp)
+
+
+def _to(msgs, dev):
+    return dataclasses.replace(msgs, target=msgs.target.to(dev),
+                               payload=msgs.payload.to(dev),
+                               valid=msgs.valid.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stats", [False, True])
+def test_auto_on_card_keeps_the_kernel_tiers_and_matches_cpu(
+        cuda, stats, tmp_path, monkeypatch):
+    from repro_torch.core import autotune as AT
+    from repro_torch.graphs.algorithms.bfs import bfs
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
+    tuner = AT.AutoTuner(ns=(4, 16), v_cal=256)
+    monkeypatch.setattr(AT, "DEFAULT_TUNER", tuner)
+    g = kronecker(12, 16, seed=0, device=cuda)
+    spec = CommitSpec(backend="auto", stats=stats)
+    got = bfs(g, 0, spec=spec).dist
+    exp = bfs(kronecker(12, 16, seed=0, device="cpu"), 0,
+              spec=CommitSpec(backend="coarse", stats=False)).dist
+    assert torch.equal(got.cpu(), exp)
+    cals = [e for e in tuner.audit if e["event"] == "calibrate"]
+    assert cals and all({"pallas", "fused"} <= set(e["tiers"])
+                        for e in cals)
+    assert all(e["event"] != "kernel_tiers_excluded" for e in tuner.audit)
+    assert all(e["device"] == torch.cuda.get_device_name(cuda)
+               for e in cals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("op", ["min", "max", "add", "or", "first"])
+def test_sanitize_on_card_is_clean(cuda, backend, op):
+    from repro_torch.analysis import sanitize as SAN
+    gen = torch.Generator().manual_seed(5)
+    v, n = 512, 20000
+    state, val = _inputs(op, torch.int32, v, n, gen, cuda)
+    msgs = make_messages(torch.randint(0, v, (n,), generator=gen).to(cuda),
+                         val)
+    SAN.clear_reports()
+    for tile_m in (16, 4096):
+        commit(state, msgs, op, CommitSpec(backend=backend, tile_m=tile_m,
+                                           sanitize=True))
+    assert SAN.reports() == ()
+
+
+@pytest.mark.cuda
+def test_run_transactions_and_degraded_bfs_on_card_match_cpu(cuda):
+    from repro_torch.core.ownership import run_transactions
+    txns = torch.randint(0, 4096, (1, 2048, 6),
+                         generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32)
+    out = [run_transactions(make_mesh(device=dev), txns.to(dev), 4096,
+                            capacity=1 << 14) for dev in (cuda, "cpu")]
+    assert torch.equal(out[0][0].cpu(), out[1][0])
+    assert out[0][1] == out[1][1] and out[0][1].retries > 0
+
+    def drop(chunk, rounds_done):
+        if chunk == 1:
+            raise RuntimeError("simulated host drop")
+    res = []
+    for dev in (cuda, "cpu"):
+        g = kronecker(12, 16, seed=0, device=dev)
+        res.append(distributed_bfs(make_mesh(device=dev), g, 0,
+                                   snapshot_rounds=1, fault_injector=drop,
+                                   telemetry=True))
+    assert torch.equal(res[0][0].cpu(), res[1][0])
+    assert res[0][-1].degraded and res[0][1] == res[1][1]
+
+
+@pytest.mark.cuda
+def test_wavetap_records_on_card_match_cpu(cuda):
+    from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.obs import wavetap
+    recs = []
+    for dev in (cuda, "cpu"):
+        wavetap.clear()
+        bfs(kronecker(12, 16, seed=0, device=dev), 0,
+            spec=CommitSpec(backend="pallas", trace=True))
+        distributed_bfs(make_mesh(device=dev),
+                        kronecker(12, 16, seed=0, device=dev), 0,
+                        spec=CommitSpec(backend="pallas", trace=True))
+        recs.append([{k: v for k, v in r.items() if k != "t"}
+                     for r in wavetap.records()])
+    wavetap.clear()
+    assert recs[0] and recs[0] == recs[1]

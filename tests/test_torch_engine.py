@@ -198,25 +198,9 @@ def test_tree_payload_wave_and_gather(capacity, backend):
 
 
 def test_unported_modes_raise():
-    _, tg, src = _graph("kron8")
-    mesh = make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="degraded-mesh"):
-        TB.distributed_bfs(mesh, tg, src, snapshot_rounds=2)
-    with pytest.raises(NotImplementedError, match="degraded-mesh"):
-        TB.distributed_bfs(mesh, tg, src, fault_injector=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TSpec(backend="auto")
-    with pytest.raises(NotImplementedError, match="items 5 and 7"):
-        TSpec(backend="coarse", trace=True)
+    _, tg, _ = _graph("kron8")
     with pytest.raises(NotImplementedError, match="Graph"):
-        TE.run_distributed(None, mesh, [tg, tg])
-
-
-def test_trace_env_raises(monkeypatch):
-    _, tg, src = _graph("kron8")
-    monkeypatch.setenv("REPRO_TRACE", "1")
-    with pytest.raises(NotImplementedError, match="REPRO_TRACE"):
-        TB.distributed_bfs(make_mesh(device="cpu"), tg, src)
+        TE.run_distributed(None, make_mesh(device="cpu"), [tg, tg])
 
 
 def test_make_mesh_defaults_to_cuda():
