@@ -67,6 +67,24 @@ Phases, one or more lines each:
    ``trace=True`` on auto ``bfs`` and ``distributed_bfs`` (one record per
    commit or round, a valid trace) and ``sanitize=True`` on ``pallas``
    ``bfs`` and ``pagerank`` (no ``SanitizeError``), with their costs;
+10. graph serving, after phase 9: ``GraphService(max_lanes=4,
+   max_graphs=16)`` over phase 4's graph and phase 8d's tenants, a
+   63-query stream (on the scale-21 graph 4 BFS, 4 SSSP, 4 PPR, 2
+   st-connectivity; on each tenant a BFS, SSSP, PPR, st-connectivity,
+   coloring and MST; a duplicate and a cache hit): (a) the synchronous
+   product drain on ``atomic`` (the plain tier, no kernel launched),
+   ``pallas`` and ``fused``, the kernel tiers equal to ``atomic`` and to
+   each other, each launching its kernel, its ``ServiceStats`` and the
+   device ms of each wave (CUDA events around the service's own
+   ``wave`` trace spans); (b) the
+   ``product=False`` drain, equal to (a), to phase 4 and to phase 8d;
+   (c) ``ContinuousServer(round_chunk=4)`` fed by two threads in three
+   bursts, every ticket answered once, at least one query boarding a
+   running wave, p50/p99 submit-to-answer; (d) a ``ServiceSupervisor``
+   fault at the second product wave, restore and WAL replay, the
+   snapshot's bytes and seconds; (e) the ``mesh=`` route at world size
+   1, C = 2**24; (f) an ``auto`` service snapshotted and restored onto
+   a fresh tuner, which times nothing;
 7. Mamba2-780m at its published width (48 layers, d_model 1536, 48 SSD
    heads of 64, state 128), bf16 compute over f32 weights drawn on the
    card from a seed: ``generate()`` on 8 x 2048 prompt tokens + 32 greedy
@@ -79,12 +97,12 @@ Phases, one or more lines each:
    steps against an S prefill, and ``ssm_apply`` against the sequential
    ``ssm_ref``.
 
-Phases 4, 6, 8, 9 and 7 (run in that order) are the main path: each
+Phases 4, 6, 8, 9, 10 and 7 (run in that order) are the main path: each
 zeroes the kernels' launch counters before it and reads them after, and
 fails if a kernel of its path was not launched (phase 6: the bucket
-count, and the fused kernel with 4 lanes; phase 8: both commit kernels
-and the bucket count; phase 9: a commit kernel and the bucket count;
-phase 7: the SSD kernel once per layer).  Then one JSON
+count, and the fused kernel with 4 lanes; phases 8 and 10: both commit
+kernels and the bucket count; phase 9: a commit kernel and the bucket
+count; phase 7: the SSD kernel once per layer).  Then one JSON
 line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
 device ms per launch, from launches back to back; ``call_ms`` is one
 launch after a synchronise, what a caller pays per call) and, last, the
@@ -129,6 +147,7 @@ ENGINE_CAPACITY = 2 ** 24          # phases 6 and 8's coalescing factor C
 LANES = 4                          # phases 6 and 8's query lanes
 LANE_PPR_ITERS = 5                 # phase 8's lane PageRank iterations
 TENANTS = (8, 16)                  # phase 8's graph batch: count, scale
+SERVE_GRAPHS = 16                  # phase 10's graph budget of a wave
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
 MAMBA = "mamba2-780m"              # phase 7's model, at its published width
 PROMPT, NEW_TOKENS = (8, 2048), 32  # phase 7's batch x prompt, greedy tokens
@@ -636,18 +655,31 @@ def phase_engine(g, device, single):
     return launches
 
 
-def count_launches(fn):
-    """``fn()`` and the launches of the three graph kernels in it."""
+def graph_kernels():
+    """The three graph kernels' wrappers, by name."""
     from repro_torch.kernels.coalesce import bucket_count_kernel
     from repro_torch.kernels.coarse_commit import coarse_commit_kernel
     from repro_torch.kernels.fused_wave import fused_route_commit_kernel
-    kernels = {"coarse_commit": coarse_commit_kernel,
-               "fused_route_commit": fused_route_commit_kernel,
-               "bucket_count": bucket_count_kernel}
-    for k in kernels.values():
+    return {"coarse_commit": coarse_commit_kernel,
+            "fused_route_commit": fused_route_commit_kernel,
+            "bucket_count": bucket_count_kernel}
+
+
+def launches_since(before=None):
+    """The graph kernels' launch counters, less ``before`` (an earlier
+    reading) where given: what ran in between, with the counters left
+    running."""
+    now = {name: k.launches for name, k in graph_kernels().items()}
+    return {name: n - (before or {}).get(name, 0) for name, n in now.items()}
+
+
+def count_launches(fn):
+    """``fn()`` and the launches of the three graph kernels in it, the
+    counters set to 0 first."""
+    for k in graph_kernels().values():
         k.launches = 0
     out = fn()
-    return out, {name: k.launches for name, k in kernels.items()}
+    return out, launches_since()
 
 
 def far_and_lone(dist):
@@ -1013,8 +1045,8 @@ def phase8_engine(g, gw, device, single, lanes, batch):
 def phase_graph_slice(g, small, device, single):
     """Phase 8: the slice's main path (st-connectivity, coloring, Boruvka,
     the graph batch, the lane and engine forms).  Returns the three graph
-    kernels' launches in it and phase 8a's endpoints and ``pallas``
-    results."""
+    kernels' launches in it, phase 8a's endpoints and ``pallas`` results,
+    and phase 8d's tenants with their ``pallas`` results."""
     import numpy as np
     import torch
     from repro_torch.graphs.generators import random_weights
@@ -1034,15 +1066,15 @@ def phase_graph_slice(g, small, device, single):
         lanes = (ss, ts, phase8_lanes(g, ss, ts))
         batch = phase8_batch(device)
         phase8_engine(g, gw, device, one, lanes, batch)
-        return one
-    one, launches = count_launches(run)
+        return one, batch
+    (one, batch), launches = count_launches(run)
     torch.cuda.synchronize()
     say(f"phase 8: done in {time.perf_counter() - t0:.1f} s; launches "
         f"{launches}")
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was not launched in phase 8")
-    return launches, one
+    return launches, one, batch
 
 
 def _drop_at_chunk_1(chunk, rounds_done):
@@ -1304,6 +1336,444 @@ def _phase9(g, device, single, slice_one, policies, steps, spent,
         say(f"phase 9f: sanitize=True on pallas {name}: no SanitizeError; "
             f"{t_san / rounds * 1e3:.2f} ms/round against "
             f"{t_plain / rounds * 1e3:.2f}")
+
+
+def serving_bursts(Q, hot_srcs, hot_pairs, srcs, tgts):
+    """Phase 10's stream, three bursts of ``(graph id, query)``: on
+    ``"hot"`` 4 BFS, 4 SSSP, 4 PPR and 2 st-connectivity queries; on each
+    tenant a BFS, an SSSP, a PPR and an st-connectivity query from phase
+    8d's endpoints, coloring (seed 0) and MST.  The first burst holds one
+    duplicate, which the service dedups."""
+    it = LANE_PPR_ITERS
+
+    def hot(lo, hi):
+        return ([("hot", Q.BfsQuery(s)) for s in hot_srcs[lo:hi]]
+                + [("hot", Q.SsspQuery(s)) for s in hot_srcs[lo:hi]]
+                + [("hot", Q.PprQuery(s, iters=it)) for s in hot_srcs[lo:hi]])
+
+    def tenants(make):
+        return [(f"t{i}", q) for i in range(len(srcs)) for q in make(i)]
+    first = (hot(0, 2) + [("hot", Q.BfsQuery(hot_srcs[0]))]
+             + [("hot", Q.StConnQuery(*hot_pairs[0]))]
+             + tenants(lambda i: (Q.BfsQuery(srcs[i]), Q.SsspQuery(srcs[i]),
+                                  Q.ColoringQuery(seed=0))))
+    second = (hot(2, 4) + [("hot", Q.StConnQuery(*hot_pairs[1]))]
+              + tenants(lambda i: (Q.PprQuery(srcs[i], iters=it),
+                                   Q.StConnQuery(srcs[i], tgts[i]))))
+    third = tenants(lambda i: (Q.MstQuery(),))
+    return first, second, third
+
+
+def same_row(what, got, exp):
+    """Raise unless two service answers agree: bools, integer and ``min``
+    rows bit for bit, PPR rows within rtol 2e-4 / atol 1e-6, MST
+    components bit for bit and weights within rtol 1e-5."""
+    import torch
+    if isinstance(exp, bool):
+        if type(got) is not bool or got != exp:
+            raise AssertionError(f"{what}: {got!r} != {exp!r}")
+    elif isinstance(exp, tuple):
+        equal(f"{what} components", got[0], exp[0])
+        torch.testing.assert_close(got[1], exp[1], rtol=1e-5, atol=0.0,
+                                   msg=lambda m: f"{what} weight: {m}")
+        equal(f"{what} edges", int(got[2]), int(exp[2]))
+    elif exp.dtype == torch.float32 and what.startswith("ppr"):
+        torch.testing.assert_close(got, exp, rtol=ADD_RTOL, atol=ADD_ATOL,
+                                   msg=lambda m: f"{what}: {m}")
+    else:
+        equal(what, got, exp)
+
+
+def serve_answers(svc, tickets):
+    """{(graph id, query): answer} over ``tickets`` [(ticket, (graph id,
+    query))], each read from ``svc``."""
+    return {key: svc.result(t) for t, key in tickets}
+
+
+def held_to(what, answers, want):
+    """Every answer of ``answers`` against ``want``'s for the same (graph
+    id, query)."""
+    for (gid, q), row in answers.items():
+        same_row(f"{q.kind} {what} {gid} {q}", row, want[gid, q])
+
+
+def phase_serving(g, device, single, slice_one, batch):
+    """Phase 10: graph serving on the card — ``GraphService`` over the
+    scale-21 graph and phase 8d's eight tenants.  Returns the three graph
+    kernels' launches in it."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = count_launches(lambda: _phase10(g, device, single,
+                                                    slice_one, batch))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"phase 10: done in {time.perf_counter() - t_phase:.1f} s (about "
+        f"{out:.1f} s of it (f)'s calibration and races); peak "
+        f"{peak:.2f} GiB; launches {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched in phase 10")
+    return launches
+
+
+def wave_tracer():
+    """An enabled :class:`repro_torch.obs.trace.Tracer` for a service
+    that also brackets each ``wave`` span with a CUDA event pair (no
+    synchronise added: a wave with no final host read, such as a
+    fixed-iteration PageRank, is timed on the card all the same).  Its
+    ``split()`` gives the device ms of each wave since the last call."""
+    import contextlib
+    import torch
+    from repro_torch.obs.trace import Tracer
+
+    class WaveTracer(Tracer):
+        def __init__(self):
+            super().__init__(enabled=True)
+            self.waves = []
+
+        @contextlib.contextmanager
+        def span(self, name, **kw):
+            if name != "wave":
+                with super().span(name, **kw):
+                    yield
+                return
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with super().span(name, **kw):
+                yield
+            end.record()
+            self.waves.append((kw["args"], start, end))
+
+        def split(self):
+            """Device ms of each wave since the last call, with its
+            axis, kind and width (cells of a product wave, queries of a
+            lane wave, graphs of a graph batch)."""
+            parts = []
+            for a, start, end in self.waves:
+                if a["axis"] == "product":
+                    width = (f"{a['lanes']}x{a['graphs']} cells "
+                             f"({a['cells']} real)")
+                else:
+                    width = f"x{a.get('queries', a.get('graphs'))}"
+                parts.append(f"{a['axis']} {a['kind']} {width} "
+                             f"{start.elapsed_time(end):.1f} ms")
+            self.waves.clear()
+            self.events.clear()
+            return "; ".join(parts)
+    return WaveTracer()
+
+
+def _phase10(g, device, single, slice_one, batch):
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core import autotune as AT
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.pagerank import personalized_pagerank
+    from repro_torch.graphs.generators import random_weights
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import queries as Q
+    from repro_torch.serve.continuous import ContinuousServer
+    from repro_torch.serve.durable import ServiceSupervisor
+    from repro_torch.serve.graph_service import GraphService
+    bfs0, sssp0, _ = single
+    src, far, lone, _ = slice_one
+    gs, gws, srcs, tgts, tenant_runs = batch
+    rng = np.random.default_rng(SEED + 10)
+    others = rng.choice(np.flatnonzero(g.degrees.cpu().numpy() > 0),
+                        LANES - 1, replace=False)
+    hot_srcs = [src] + [int(x) for x in others]
+    bursts = serving_bursts(Q, hot_srcs, [(src, far), (src, lone)], srcs,
+                            tgts)
+    stream = [item for b in bursts for item in b]
+    again = bursts[0][0]                 # resubmitted after a drain
+    graphs = {"hot": random_weights(g, seed=0)}
+    graphs.update({f"t{i}": m for i, m in enumerate(gws.graphs)})
+    say(f"phase 10: tenants: hot (V={g.num_vertices} E={g.num_edges}) and "
+        f"{len(gws.graphs)} Kronecker scale-{TENANTS[1]} graphs; V_tot="
+        f"{sum(x.num_vertices for x in graphs.values())} E_tot="
+        f"{sum(x.num_edges for x in graphs.values())}; the stream: "
+        f"{len(stream)} queries in 3 bursts, one duplicate, one cache hit")
+
+    def service(backend="pallas", **kw):
+        svc = GraphService(spec=CommitSpec(backend=backend, stats=False),
+                           max_lanes=LANES, max_graphs=SERVE_GRAPHS, **kw)
+        for gid, x in graphs.items():
+            svc.register_graph(gid, x)
+        return svc
+
+    def drain_all(svc):
+        tickets = [(svc.submit(gid, q), (gid, q)) for gid, q in stream]
+        before = launches_since()
+        done, wall = timed(svc.drain)
+        launched = launches_since(before)
+        if sorted(done) != sorted({t for t, _ in tickets}):
+            raise AssertionError("a drain left a ticket unanswered")
+        hit = svc.submit(*again)
+        if hit not in svc._results:
+            raise AssertionError("the resubmitted query was no cache hit")
+        return serve_answers(svc, tickets), wall, launched
+
+    # (a) the synchronous product drain: on atomic, the plain tier that
+    # launches no kernel, then on pallas and fused, each held to atomic's
+    # answers and fused to pallas's
+    tracer = wave_tracer()
+    want, stats, by_backend = None, {}, {}
+    kernel_of = {"atomic": None, "pallas": "coarse_commit",
+                 "fused": "fused_route_commit"}
+    for backend, kernel in kernel_of.items():
+        svc = service(backend, tracer=tracer)
+        answers, wall, launched = drain_all(svc)
+        stats[backend] = svc.stats
+        say(f"phase 10a: {backend:6s} drain of {len(stream)} queries "
+            f"{wall * 1e3:.1f} ms ({len(stream) / wall:.1f} queries/s); "
+            f"launches {launched}; device ms by wave: {tracer.split()}")
+        if kernel is None:
+            if any(launched.values()):
+                raise AssertionError(f"phase 10a: the atomic drain "
+                                     f"launched {launched}")
+            want = answers
+        else:
+            if launched[kernel] < 1:
+                raise AssertionError(f"phase 10a: the {backend} drain did "
+                                     f"not launch {kernel}")
+            held_to(f"{backend} vs atomic", answers, want)
+        by_backend[backend] = answers
+        del svc
+    held_to("fused vs pallas", by_backend["fused"], by_backend["pallas"])
+    # 4 product kinds over 9 graphs: 4 lanes (2 for st-conn) x 9 cells, 12
+    # (10) of them real; coloring and MST as graph batches of 8
+    expect = dict(product_waves=4, product_cells=3 * 36 + 18,
+                  product_cells_padded=3 * 24 + 8, graph_waves=2,
+                  graphs_batched=16, waves=0, deduped=1, cache_hits=1)
+    for backend, st in stats.items():
+        got = {f: getattr(st, f) for f in expect}
+        if got != expect:
+            raise AssertionError(f"phase 10a {backend}: stats {got} != "
+                                 f"{expect}")
+    say(f"phase 10a: pallas and fused equal atomic and each other (BFS, "
+        f"SSSP, st-conn, coloring, MST components bit for bit; PPR within "
+        f"rtol 2e-4 / atol 1e-6; MST weights within rtol 1e-5); stats on "
+        f"all three {expect}")
+
+    # (b) the two-axis drain: lane waves and graph batches, equal to (a)
+    # and to phases 4 and 8d
+    svc = service(product=False, tracer=tracer)
+    two_axis, wall_b, launched = drain_all(svc)
+    st_b = svc.stats
+    say(f"phase 10b: product=False drain {wall_b * 1e3:.1f} ms "
+        f"({len(stream) / wall_b:.1f} queries/s); launches {launched}; "
+        f"device ms by wave: {tracer.split()}")
+    del svc
+    held_to("two-axis vs product", two_axis, want)
+    if st_b.product_waves or st_b.waves != 4 or st_b.graph_waves != 6:
+        raise AssertionError(f"phase 10b: {st_b}")
+    equal("hot bfs vs phase 4", want["hot", Q.BfsQuery(src)], bfs0.dist)
+    equal("hot sssp vs phase 4", want["hot", Q.SsspQuery(src)], sssp0)
+    colors, _, _ = tenant_runs["coloring"]
+    for i, (m, s, t) in enumerate(zip(gs.graphs, srcs, tgts)):
+        gid = f"t{i}"
+        equal(f"{gid} bfs vs phase 8d", want[gid, Q.BfsQuery(s)],
+              tenant_runs["bfs"][i])
+        equal(f"{gid} sssp vs phase 8d", want[gid, Q.SsspQuery(s)],
+              tenant_runs["sssp"][i])
+        equal(f"{gid} st-conn vs phase 8d", want[gid, Q.StConnQuery(s, t)],
+              bool(tenant_runs["stconn"][i]))
+        equal(f"{gid} coloring vs phase 8d", want[gid, Q.ColoringQuery(0)],
+              colors[i])
+        comp, w, n = tenant_runs["boruvka"][0][i]
+        same_row(f"mst {gid} vs phase 8d", want[gid, Q.MstQuery()],
+                 (comp, w, n))
+        ppr, _ = personalized_pagerank(m, s, iters=LANE_PPR_ITERS,
+                                       spec=CommitSpec(backend="pallas",
+                                                       stats=False))
+        same_row(f"ppr {gid} vs a single query",
+                 want[gid, Q.PprQuery(s, iters=LANE_PPR_ITERS)], ppr)
+    say(f"phase 10b: the product=False drain ({st_b.waves} lane waves, "
+        f"{st_b.graph_waves} graph batches) equals (a); hot's BFS and SSSP "
+        f"from phase 4's source equal phase 4's; each tenant's answers "
+        f"equal phase 8d's, PPR a single-query run's")
+
+    # (c) the continuous server: two submitter threads, three bursts
+    svc = service()
+    started = threading.Event()
+
+    def first_chunk(where, i):
+        if where == "continuous":          # a product wave's chunk runs
+            started.set()
+    svc.fault_injector = first_chunk
+    tickets, tlock = [], threading.Lock()
+
+    def submit_burst(cs, items):
+        def submitter(part):
+            for gid, q in part:
+                t = cs.submit(gid, q)
+                with tlock:
+                    tickets.append((t, (gid, q)))
+        threads = [threading.Thread(target=submitter, args=(items[k::2],))
+                   for k in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    before = launches_since()
+    t0 = time.perf_counter()
+    with ContinuousServer(svc, round_chunk=4) as cs:
+        submit_burst(cs, bursts[0])
+        if not started.wait(600):
+            raise AssertionError("phase 10c: no product wave started")
+        submit_burst(cs, bursts[1])        # while the first wave runs
+        first = [t for t, _ in tickets[:len(bursts[0])]]
+        cs.results(first, timeout=600)
+        submit_burst(cs, [again] + bursts[2])
+        cs.results([t for t, _ in tickets], timeout=600)
+    wall = time.perf_counter() - t0
+    launched = launches_since(before)
+    if cs.last_error is not None:
+        raise AssertionError(f"phase 10c: {cs.last_error!r}")
+    h = svc.stats.registry.histogram("aam_submit_to_answer_seconds")
+    if (h.count != len(tickets) or sorted(cs.done_at) != sorted(
+            t for t, _ in tickets)):
+        raise AssertionError(f"phase 10c: {h.count} answers for "
+                             f"{len(tickets)} tickets")
+    held_to("continuous vs (a)", serve_answers(svc, tickets), want)
+    if not cs.boarded:
+        raise AssertionError("phase 10c: no query boarded a running wave")
+    st = svc.stats
+    lat = [cs.done_at[t] - cs.submit_at[t] for t, _ in tickets]
+    say(f"phase 10c: ContinuousServer(round_chunk=4), 2 threads, 3 bursts: "
+        f"{len(tickets)} tickets answered once each, equal to (a), in "
+        f"{wall:.2f} s; {cs.boarded} queries boarded a running wave; "
+        f"{st.product_waves} product waves, {st.drains} drains; launches "
+        f"{launched}; submit-to-answer from the histogram p50 "
+        f"{h.quantile(0.5) * 1e3:.1f} ms, p99 {h.quantile(0.99) * 1e3:.1f} "
+        f"ms (bucket bounds), from the tickets' times p50 "
+        f"{np.percentile(lat, 50) * 1e3:.1f} ms, p99 "
+        f"{np.percentile(lat, 99) * 1e3:.1f} ms")
+    del svc, cs
+
+    # (d) the supervisor: a snapshot of the first burst's queue, a fault,
+    # restore and WAL replay, timed between the supervisor's own log lines
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckdir = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        svc = service()
+        marks = {}
+
+        def log(msg):
+            say(f"phase 10d: {msg}")
+            if msg.startswith("[supervisor]"):       # restore begins
+                marks["fault"] = time.perf_counter()
+            elif msg.startswith("[service] restored"):
+                torch.cuda.synchronize()
+                marks["restored"] = time.perf_counter()
+        sup = ServiceSupervisor(svc, Checkpointer(ckdir), log=log)
+        tickets = [(sup.submit(gid, q), (gid, q)) for gid, q in bursts[0]]
+        step, t_save = timed(sup.save)
+        nbytes = sum(p.stat().st_size for p in
+                     (pathlib.Path(ckdir) / f"step_{step:08d}").rglob("*")
+                     if p.is_file())
+        tickets += [(sup.submit(gid, q), (gid, q))
+                    for gid, q in bursts[1] + bursts[2]]
+        products = []
+
+        def fault(where, i):
+            if where == "product":
+                products.append(i)
+                if len(products) == 2:
+                    raise RuntimeError("simulated host drop at the second "
+                                       "product wave")
+        svc.fault_injector = fault
+        before = launches_since()
+        done = sup.drain()
+        launched = launches_since(before)
+        hit = sup.submit(*again)
+        tickets.append((hit, again))
+        if (sup.restarts != 1 or len(products) != 2 or sup.service is svc
+                or sorted(done) != [t for t, _ in tickets[:-1]]
+                or hit not in done and hit not in sup.service._results
+                or sup.service.pending()
+                or sup.service._next_ticket != len(tickets)):
+            raise AssertionError(f"phase 10d: restarts {sup.restarts}, "
+                                 f"{len(done)} answered of {len(tickets)}, "
+                                 f"pending {sup.service.pending()}")
+        answers = serve_answers(sup.service, tickets)
+        held_to("supervised vs (a)", answers, want)
+        say(f"phase 10d: ServiceSupervisor: a snapshot of the first burst's "
+            f"queue, {nbytes} bytes, saved in {t_save:.2f} s; a fault at "
+            f"the second product wave; restore and WAL replay "
+            f"{marks['restored'] - marks['fault']:.2f} s; the re-drain "
+            f"answered all {len(done)} tickets once, equal to (a); the "
+            f"resubmitted query a cache hit of the restored service; "
+            f"launches {launched}")
+        del svc, sup
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    # (e) the mesh= route at world size 1, its owner side on the fused
+    # kernel
+    svc = GraphService(spec=CommitSpec(backend="fused", stats=False),
+                       max_lanes=LANES, max_graphs=SERVE_GRAPHS,
+                       mesh=make_mesh(device=device),
+                       capacity=ENGINE_CAPACITY)
+    svc.register_graph("hot", graphs["hot"])
+    mesh_stream = ([("hot", Q.BfsQuery(s)) for s in hot_srcs]
+                   + [("hot", Q.StConnQuery(src, far)),
+                      ("hot", Q.StConnQuery(src, lone))])
+    before = launches_since()
+    rows, wall = timed(lambda: svc.run("hot", [q for _, q in mesh_stream]))
+    launched = launches_since(before)
+    held_to("mesh= route vs (a)", dict(zip(mesh_stream, rows)), want)
+    if not (launched["bucket_count"] and launched["fused_route_commit"]):
+        raise AssertionError(f"phase 10e: launches {launched}")
+    say(f"phase 10e: the mesh= route at world size 1, C = 2^24: 4 BFS lanes "
+        f"and 2 st-conn queries in {wall * 1e3:.1f} ms, equal to (a); "
+        f"launches {launched}")
+    del svc
+
+    # (f) a warm restore of an auto service: the first drain on the tuner
+    # phase 9 warmed calibrates and races what it lacks; the restored
+    # service, on a fresh tuner, times nothing
+    tuner = AT.DEFAULT_TUNER
+    auto_stream = [("t0", Q.BfsQuery(srcs[0])), ("t0", Q.BfsQuery(0)),
+                   ("t1", Q.BfsQuery(srcs[1])), ("t0", Q.SsspQuery(srcs[0])),
+                   ("t1", Q.SsspQuery(srcs[1]))]
+    os.environ["REPRO_AUTOTUNE_CACHE"] = "off"
+    try:
+        svc = GraphService(cache=False)            # backend="auto"
+        for gid in ("t0", "t1"):
+            svc.register_graph(gid, graphs[gid])
+        first = [svc.submit(gid, q) for gid, q in auto_stream]
+        _, t_first = timed(svc.drain)
+        runs0 = svc.stats.timing_runs
+        queued = [svc.submit(gid, q) for gid, q in auto_stream]
+        snap = svc.snapshot()
+        fresh = AT.AutoTuner()
+        AT.DEFAULT_TUNER = fresh
+        restored = GraphService.restore(snap, device=device)
+        done, t_warm = timed(restored.drain)
+    finally:
+        AT.DEFAULT_TUNER = tuner
+        os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+    if sorted(done) != queued or restored.stats.timing_runs \
+            or fresh.timed_runs:
+        raise AssertionError(f"phase 10f: the restored auto service timed "
+                             f"{restored.stats.timing_runs} runs")
+    for t_a, t_b, (gid, q) in zip(first, queued, auto_stream):
+        same_row(f"{q.kind} warm auto {gid} {q}", restored.result(t_b),
+                 svc.result(t_a))
+    say(f"phase 10f: default-spec (auto) service over t0 and t1: the first "
+        f"drain {t_first:.2f} s ({runs0} timed runs); restored on a fresh "
+        f"AutoTuner, its replayed queue drained in {t_warm * 1e3:.1f} ms "
+        f"with timing_runs == 0, equal to the first drain; calibration and "
+        f"races, the difference: {t_first - t_warm:.2f} s")
+    return t_first - t_warm
 
 
 def ssd_bound(g, L, n, p, elem):
@@ -1594,13 +2064,15 @@ def main() -> int:
         "and pagerank x V agrees with pagerank_reference (float64)")
 
     engine_launches = phase_engine(g, device, single)
-    slice_launches, slice_one = phase_graph_slice(g, small, device, single)
+    slice_launches, slice_one, batch = phase_graph_slice(g, small, device,
+                                                         single)
     tuned_launches = phase_tuned(g, device, single, slice_one)
-    del g, single, small, slice_one
+    serve_launches = phase_serving(g, device, single, slice_one, batch)
+    del g, single, small, slice_one, batch
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
     launches = {name: sum(part.get(name, 0) for part in (
-        launches, engine_launches, slice_launches, tuned_launches))
-        for name in KERNELS}
+        launches, engine_launches, slice_launches, tuned_launches,
+        serve_launches)) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
 
     kernels = [dict(name=name, route="cuda", source=src_path,

@@ -195,10 +195,11 @@ class GraphSet:
 
 
 def segment_sum(values, seg, num_segments: int) -> torch.Tensor:
-    """[num_segments] sums of ``values`` by segment id ``seg`` (a
-    GraphSet's per-graph reductions by its graph-of-vertex map)."""
-    out = torch.zeros((num_segments,), dtype=values.dtype,
-                      device=values.device)
+    """[num_segments, ...] sums of ``values`` [n, ...] by segment id
+    ``seg`` [n] (a GraphSet's per-graph reductions by its
+    graph-of-vertex map)."""
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
     return out.index_add_(0, seg.long(), values)
 
 

@@ -6,6 +6,8 @@
   histograms with Prometheus text and ``aam-metrics/v1`` snapshots;
 * :mod:`repro_torch.obs.wavetap`: the per-commit and per-round taps,
   installed only when ``REPRO_TRACE=1`` or ``CommitSpec(trace=True)``;
+* ``python -m repro_torch.obs.dump``: the mixed-tenant serving trace
+  demo (:mod:`repro_torch.obs.dump`);
 * device-time breakdowns on the card: ``round_profile``,
   ``serve_profile``, ``commit_profile``, ``ssd_profile`` and their timer
   ``timing``.

@@ -283,8 +283,14 @@ def _port(g):
 def test_auto_matches_reference_on_all_six_algorithms(monkeypatch):
     """The reference's ``test_auto_matches_static_on_all_six_algorithms``
     with the port on the other side: both tuners deterministic
-    (``REPRO_AUTOTUNE=off``), so both pick the same tier and ladder."""
+    (``REPRO_AUTOTUNE=off``), so both pick the same tier and ladder.
+    The reference resolves its policy when it traces, and its jit cache
+    does not key on the environment: a trace of the same graph and spec
+    made earlier in the process with the tuner on would be reused, so
+    the caches are cleared first (as the reference's
+    ``test_durability.py`` does)."""
     monkeypatch.setenv("REPRO_AUTOTUNE", "off")
+    jax.clear_caches()
     g = JG.kronecker(7, 8, seed=3)
     gw = JG.random_weights(g, seed=4)
     tg, tgw = _port(g), _port(gw)

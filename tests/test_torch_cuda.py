@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, the wave engine
-on the card against the engine on the CPU, and the Mamba2 serving path on
-its kernel path against its plain path.
+and the graph service on the card against the CPU, and the Mamba2
+serving path on its kernel path against its plain path.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -854,3 +854,130 @@ def test_wavetap_records_on_card_match_cpu(cuda):
                      for r in wavetap.records()])
     wavetap.clear()
     assert recs[0] and recs[0] == recs[1]
+
+
+def _serve_graphs(dev):
+    from repro_torch.graphs.generators import erdos_renyi
+    graphs = {"hot": random_weights(kronecker(12, 16, seed=0, device=dev),
+                                    seed=1)}
+    for i in range(3):
+        graphs[f"t{i}"] = random_weights(
+            erdos_renyi(200 + 50 * i, 6.0, seed=i, device=dev), seed=i)
+    return graphs
+
+
+def _serve_stream(Q):
+    return ([("hot", Q.BfsQuery(s)) for s in (0, 5, 9)]
+            + [("hot", Q.SsspQuery(s)) for s in (0, 5)]
+            + [("hot", Q.PprQuery(s, iters=5)) for s in (0, 5)]
+            + [("hot", Q.StConnQuery(0, s)) for s in (7, 4095)]
+            + [(f"t{i}", q) for i in range(3) for q in (
+                Q.BfsQuery(i), Q.SsspQuery(i), Q.PprQuery(i, iters=5),
+                Q.StConnQuery(0, 100 + i), Q.ColoringQuery(), Q.MstQuery())])
+
+
+def _same_answer(a, b):
+    if isinstance(b, bool):
+        assert a == b
+    elif isinstance(b, tuple):
+        assert torch.equal(a[0].cpu(), b[0].cpu())
+        torch.testing.assert_close(a[1].cpu(), b[1].cpu(), rtol=1e-5,
+                                   atol=0.0)
+        assert int(a[2]) == int(b[2])
+    elif b.dtype == torch.float32 and not torch.equal(a.cpu(), b.cpu()):
+        torch.testing.assert_close(a.cpu(), b.cpu(), rtol=2e-4, atol=1e-6)
+    else:
+        assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", [True, False])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_service_on_card_matches_cpu(cuda, backend, product):
+    from repro_torch.serve import queries as Q
+    from repro_torch.serve.graph_service import GraphService
+    out, stats = [], []
+    for dev in (cuda, "cpu"):
+        svc = GraphService(spec=CommitSpec(backend=backend, stats=False),
+                           max_lanes=4, max_graphs=4, product=product)
+        for gid, g in _serve_graphs(dev).items():
+            svc.register_graph(gid, g)
+        tickets = [svc.submit(gid, q) for gid, q in _serve_stream(Q)]
+        svc.drain()
+        out.append([svc.result(t) for t in tickets])
+        stats.append({f: getattr(svc.stats, f) for f in svc.stats._COUNTERS
+                      if f not in ("drain_s",)})
+    assert stats[0] == stats[1]
+    for (gid, q), a, b in zip(_serve_stream(Q), *out):
+        if isinstance(a, torch.Tensor):
+            assert a.device.type == "cuda"
+        _same_answer(a, b)
+
+
+@pytest.mark.cuda
+def test_product_wave_on_card_harvests_in_one_read(cuda):
+    from repro_torch.graphs.csr import GraphSet
+    from repro_torch.serve import queries as Q
+    from repro_torch.serve.product_wave import ProductWave
+    gs = GraphSet(list(_serve_graphs(cuda).values()))
+    for kind, make in (("bfs", lambda i: Q.BfsQuery(i)),
+                       ("stconn", lambda i: Q.StConnQuery(i, 3 * i + 1)),
+                       ("ppr", lambda i: Q.PprQuery(i, iters=3))):
+        wave = ProductWave(kind, gs, 2, spec=CommitSpec(backend="pallas",
+                                                        stats=False),
+                           fuse={"iters": 3, "d": 0.85}, round_chunk=1)
+        for g in range(gs.num_graphs):
+            wave.insert(g % 2, g, make(g))
+        while True:
+            flags = wave.done_cells()
+            for lane in range(2):
+                for g in range(gs.num_graphs):
+                    assert flags[lane, g] == wave.cell_done(lane, g)
+            if wave.run_chunk():
+                break
+        row = wave.extract(0, 0)
+        kept = row.clone() if isinstance(row, torch.Tensor) else row
+        wave.release(0, 0)
+        wave.insert(0, 0, make(7))
+        wave.run()
+        if isinstance(row, torch.Tensor):
+            assert torch.equal(row, kept)
+
+
+@pytest.mark.cuda
+def test_supervised_continuous_serving_on_card(cuda, tmp_path):
+    """A kill mid-wave under a ServiceSupervisor on the card: every
+    ticket answered once, equal to a CPU service's answers; the restored
+    service lives on the card."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serve import queries as Q
+    from repro_torch.serve.continuous import ContinuousServer
+    from repro_torch.serve.durable import ServiceSupervisor
+    from repro_torch.serve.graph_service import GraphService
+    spec = CommitSpec(backend="fused", stats=False)
+    svc = GraphService(spec=spec, cache=False)
+    for gid, g in _serve_graphs(cuda).items():
+        svc.register_graph(gid, g)
+    sup = ServiceSupervisor(svc, Checkpointer(tmp_path), log=lambda *a: None)
+    sup.save()
+    kills = []
+
+    def injector(where, i):
+        if where == "continuous" and not kills and i == 2:
+            kills.append(i)
+            raise RuntimeError("injected kill")
+    svc.fault_injector = injector
+    with ContinuousServer(sup, max_wait_s=0.01, round_chunk=1) as cs:
+        tickets = [cs.submit(gid, q) for gid, q in _serve_stream(Q)]
+        rows = cs.results(tickets, timeout=600)
+    assert kills and sup.restarts == 1
+    assert sorted(cs.done_at) == sorted(tickets)
+    assert all(g.device.type == "cuda"
+               for g in sup.service._graphs.values())
+    ref = GraphService(spec=spec, cache=False)
+    for gid, g in _serve_graphs("cpu").items():
+        ref.register_graph(gid, g)
+    want = [ref.submit(gid, q) for gid, q in _serve_stream(Q)]
+    ref.drain()
+    for a, t in zip(rows, want):
+        _same_answer(a, ref.result(t))

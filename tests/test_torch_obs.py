@@ -267,3 +267,156 @@ def test_new_modules_import_nothing_of_the_reference():
                          text=True, check=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(src)})
     assert out.stdout.strip() == "[] []"
+
+
+# -- the serving layer's spans, instants and metrics --------------------------
+
+
+class CountingClock(FakeClock):
+    def __init__(self, t=0.0):
+        super().__init__(t)
+        self.reads = 0
+
+    def __call__(self):
+        self.reads += 1
+        return self.t
+
+
+def test_service_stats_is_registry_view():
+    from repro.serve.graph_service import ServiceStats as JStats
+    from repro_torch.serve.graph_service import ServiceStats as TStats
+    texts = []
+    for cls in (JStats, TStats):
+        st = cls()
+        st.waves += 3
+        st.graph_waves += 2
+        st.product_waves += 1
+        st.last_drain_s = 0.5
+        assert st.total_waves == 6
+        assert st.registry.counter("aam_waves").value == 3
+        assert st.registry.gauge("aam_last_drain_s").value == 0.5
+        assert "waves=3" in repr(st)
+        with pytest.raises(AttributeError):
+            st.nonexistent_field
+        texts.append((st.registry.prometheus_text(), repr(st),
+                      st.registry.snapshot()))
+    assert texts[1] == texts[0]
+
+
+def _served_trace(gs_mod, q_mod, spec, graph):
+    """One traced script on a service under a fake clock: a submit, a
+    drain, a cache hit."""
+    clk = CountingClock()
+    tr = (JT if gs_mod.__name__.startswith("repro.") else TT).Tracer(
+        clock=clk, enabled=True)
+    svc = gs_mod.GraphService(clock=clk, tracer=tr, spec=spec)
+    svc.register_graph("g", graph)
+    svc.submit("g", q_mod.BfsQuery(0))
+    r0 = clk.reads
+    svc.drain()
+    reads = clk.reads - r0
+    svc.submit("g", q_mod.BfsQuery(0))        # cache hit
+    return tr, reads
+
+
+def test_serving_trace_matches_reference():
+    """The drain span reuses the drain's two clock reads (4 with the one
+    wave's span), submit instants record cache hits, and the whole
+    document equals the reference's on the same script."""
+    from repro.serve import graph_service as JS
+    from repro.serve import queries as JQ
+    from repro_torch.serve import graph_service as TS
+    from repro_torch.serve import queries as TQ
+    g = JG.erdos_renyi(20, 3.0, seed=0)
+    jt, jreads = _served_trace(JS, JQ, JSpec(backend="atomic", stats=False),
+                               g)
+    tt, treads = _served_trace(TS, TQ, TSpec(backend="atomic", stats=False),
+                               _port(g))
+    assert treads == jreads == 4
+    subs = [e for e in tt.events if e["name"] == "submit"]
+    assert [s["args"]["cache_hit"] for s in subs] == [False, True]
+    drain = next(e for e in tt.events if e["name"] == "drain")
+    assert drain["args"]["done"] == 1
+    assert tt.open_spans() == []
+    assert tt.to_chrome() == jt.to_chrome()
+
+
+def test_crash_restore_redrain_single_trace(tmp_path):
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.serve.durable import ServiceSupervisor
+    from repro_torch.serve.graph_service import GraphService
+    from repro_torch.serve.queries import BfsQuery
+    clk = FakeClock()
+    tr = TT.Tracer(clock=clk, enabled=True)
+    svc = GraphService(clock=clk, tracer=tr, cache=False,
+                       spec=TSpec(backend="pallas", stats=False))
+    g = JG.erdos_renyi(24, 3.0, seed=5)
+    svc.register_graph("g", _port(g))
+    sup = ServiceSupervisor(svc, Checkpointer(tmp_path),
+                            log=lambda *_: None)
+    sup.save()
+    tickets = [sup.submit("g", BfsQuery(s)) for s in range(3)]
+    kill = svc._wave_i
+    svc.fault_injector = (
+        lambda where, i: (_ for _ in ()).throw(
+            RuntimeError("host lost")) if i == kill else None)
+    done = sup.drain()                  # crash -> restore -> re-drain
+    assert sorted(done) == tickets
+    assert sup.service.tracer is tr and tr.open_spans() == []
+    names = [e["name"] for e in tr.events]
+    assert names.count("drain") == 2
+    inst = [e["name"] for e in tr.events if e["ph"] == "i"]
+    assert "restore" in inst and "wal_replay" in inst
+    wal = next(e for e in tr.events if e["name"] == "wal_replay")
+    assert wal["args"]["replayed"] == 3
+    assert TT.validate_trace(tr.to_chrome()) == []
+    for s, t in zip(range(3), tickets):
+        np.testing.assert_array_equal(sup.result(t).numpy(),
+                                      np.asarray(JB.bfs(g, s).dist))
+
+
+def test_continuous_latency_histogram():
+    from repro_torch.serve.continuous import ContinuousServer
+    from repro_torch.serve.graph_service import GraphService
+    from repro_torch.serve.queries import BfsQuery
+    svc = GraphService(cache=False,
+                       spec=TSpec(backend="atomic", stats=False))
+    svc.register_graph("g", _port(JG.kronecker(5, 6, seed=1)))
+    svc.register_graph("h", _port(JG.erdos_renyi(30, 4.0, seed=2)))
+    with ContinuousServer(svc, max_wait_s=0.005) as cs:
+        tickets = [cs.submit("g", BfsQuery(s)) for s in range(4)]
+        tickets += [cs.submit("h", BfsQuery(s)) for s in range(3)]
+        cs.results(tickets, timeout=120)
+    assert cs.last_error is None
+    lat = [cs.done_at[t] - cs.submit_at[t] for t in tickets]
+    h = cs.svc.stats.registry.histogram("aam_submit_to_answer_seconds")
+    assert h.count == len(tickets)
+    assert h.sum == pytest.approx(sum(lat))
+    for q in (0.5, 0.99):
+        exact = float(np.percentile(lat, q * 100))
+        assert abs(h.bucket_of(exact) - h.bucket_of(h.quantile(q))) <= 1
+
+
+def test_dump_writes_a_valid_trace_and_metrics(tmp_path):
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    env = {**os.environ, "PYTHONPATH": str(src), "REPRO_AUTOTUNE": "off",
+           "REPRO_AUTOTUNE_CACHE": "off"}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.dump", "--device", "cpu",
+         "--scale", "5", "--out", "T.json", "--metrics", "M"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    doc = json.loads((tmp_path / "T.json").read_text())
+    assert TT.validate_trace(doc) == []
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"drain", "product_wave", "submit"} <= names
+    snap = json.loads((tmp_path / "M.json").read_text())
+    assert TM.validate_metrics_json(snap) == []
+    assert snap["histograms"]["aam_submit_to_answer_seconds"]["count"] == 11
+    assert "aam_product_waves" in (tmp_path / "M.prom").read_text()
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "M.json", "M.prom", "T.json"]

@@ -10,6 +10,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import textwrap
 
 import numpy as np
@@ -44,7 +45,15 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.launch.serve",
                      "repro_torch.graphs.algorithms.stconn",
                      "repro_torch.graphs.algorithms.coloring",
-                     "repro_torch.graphs.algorithms.boruvka"):
+                     "repro_torch.graphs.algorithms.boruvka",
+                     "repro_torch.serve.queries",
+                     "repro_torch.serve.graph_service",
+                     "repro_torch.serve.product_wave",
+                     "repro_torch.serve.continuous",
+                     "repro_torch.serve.durable",
+                     "repro_torch.checkpoint.checkpointer",
+                     "repro_torch.runtime.fault_tolerance",
+                     "repro_torch.obs.dump"):
             assert name in names, name
         print(len(names))
     """)
@@ -55,8 +64,17 @@ def test_port_imports_without_jax_or_reference():
     assert int(out.stdout.split()[-1]) >= 30    # every module was found
 
 
+def _restore_checkpoint():
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    with tempfile.TemporaryDirectory() as d:
+        Checkpointer(d).restore({"x": np.zeros(2)})
+
+
 def _entry_points():
     from repro_torch import convert
+    from repro_torch.obs import dump
+    from repro_torch.serve.durable import restore_service
+    from repro_torch.serve.graph_service import GraphService
     from repro_torch.configs.archs import ARCHS
     from repro_torch.configs.base import RunConfig, ShapeConfig, smoke_model
     from repro_torch.graphs import csr, generators
@@ -86,10 +104,14 @@ def _entry_points():
         lambda: convert.to_lm_params(cfg, {"embed": {}, "blocks": [],
                                            "final_norm": np.ones(2)}),
         lambda: convert.to_graphset([([0, 1, 2, 2], *edges, [1.0, 1.0], 3)]),
+        lambda: restore_service(GraphService().snapshot()),
+        lambda: GraphService.restore(GraphService().snapshot()),
+        _restore_checkpoint,
+        lambda: dump.main(["--scale", "3"]),
     ]
 
 
-@pytest.mark.parametrize("i", range(16))
+@pytest.mark.parametrize("i", range(20))
 def test_entry_points_default_to_cuda(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
