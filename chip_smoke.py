@@ -97,12 +97,34 @@ Phases, one or more lines each:
    steps against an S prefill, and ``ssm_apply`` against the sequential
    ``ssm_ref``.
 
-Phases 4, 6, 8, 9, 10 and 7 (run in that order) are the main path: each
+11. every decoder family's serving path, after phase 7: (a)
+   phi3.5-moe-42b-a6.6b at its published width (d_model 4096, 32 heads
+   of 128, 8 KV heads, 16 experts of 6400, top 2), 8 of its 32 layers,
+   bf16 compute over f32 weights drawn on the card: ``generate()`` on 4 x
+   2048 prompt tokens + 16 greedy tokens (the bucket-count kernel once
+   per MoE layer per forward, ``moe_dropped`` 0), prefill and decode
+   times, peak memory, the expert rows' padding share, and the
+   bucket-count kernel against its plain version on layer 0's own owner
+   ids, timed beside it and ``torch.bincount``; (b) qwen2-1.5b whole:
+   ``generate()`` on 8 x 2048 + 32 tokens, prefill, decode, peak; (c)
+   on-card oracles in f32, each printed beside its bound: phi3.5 layer 0
+   at T = 512, ``moe_apply_aam`` against ``moe_apply_dense`` and the
+   kernel-counted plan against ``torch.bincount``'s; phi3.5 S - 8
+   prefill + 8 decode steps against an S prefill (2 x 256), both
+   prefills with K/V rounded to bf16 as the cache stores them, every
+   layer routing each token alike; gemma2-27b at its published width, 2
+   layers (local, global) on 1 x 8192 tokens: the chunked attention path
+   against the direct one, and an 8184 prefill + 8 decode steps
+   (wrapping the local ring) against the 8192 prefill.
+
+Phases 4, 6, 8, 9, 10, 7 and 11 (run in that order) are the main path: each
 zeroes the kernels' launch counters before it and reads them after, and
 fails if a kernel of its path was not launched (phase 6: the bucket
 count, and the fused kernel with 4 lanes; phases 8 and 10: both commit
 kernels and the bucket count; phase 9: a commit kernel and the bucket
-count; phase 7: the SSD kernel once per layer).  Then one JSON
+count; phase 7: the SSD kernel once per layer; phase 11: the bucket
+count once per MoE layer per forward of its ``generate()``).  Then one
+JSON
 line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
 device ms per launch, from launches back to back; ``call_ms`` is one
 launch after a synchronise, what a caller pays per call) and, last, the
@@ -154,6 +176,16 @@ PROMPT, NEW_TOKENS = (8, 2048), 32  # phase 7's batch x prompt, greedy tokens
 SSD_LS = (1, 7, 64, 100, 125, 128)  # phase 7's chunk lengths
 SSD_NPS = ((16, 16), (128, 64))    # (state N, head dim P): smoke, published
 ORACLE = (2, 1024)                 # phase 7's f32 oracles: batch x tokens
+PHI = "phi3.5-moe-42b-a6.6b"       # phase 11a's model, at its published width
+PHI_LAYERS = 8                     # of 32: the whole model is 84 GB in bf16
+PHI_PROMPT, PHI_NEW = (4, 2048), 16  # phase 11a: batch x prompt, greedy
+PHI_ORACLE_T = 512                 # phase 11c: layer 0's MoE, tokens
+LM_ORACLE = (2, 256)               # phase 11c: phi3.5 decode vs prefill
+QWEN = "qwen2-1.5b"                # phase 11b's model, whole
+QWEN_PROMPT, QWEN_NEW = (8, 2048), 32
+GEMMA = "gemma2-27b"               # phase 11c: a local and a global layer
+GEMMA_SEQ = 8192
+DECODE_K = 8                       # phase 11c: decode steps after S - k
 
 
 def say(*parts):
@@ -1971,8 +2003,8 @@ def phase_mamba2(device, max_err):
     ob, os_ = ORACLE
     short = tokens[:ob, :os_]
     with torch.no_grad():
-        lk, _ = lm.forward(cfg, f32, model, short)
-        lp, _ = lm.forward(cfg, f32_plain, model, short)
+        lk, _, _ = lm.forward(cfg, f32, model, short)
+        lp, _, _ = lm.forward(cfg, f32_plain, model, short)
     d_path = rel_diff(lk[..., :cfg.vocab_size], lp[..., :cfg.vocab_size])
     del lk
     k = 8
@@ -2001,6 +2033,379 @@ def phase_mamba2(device, max_err):
             raise AssertionError(f"phase 7 oracle {what}: {d} > {bound_}")
     return launches, dict(ms=ms, call_ms=call, plain_ms=plain,
                           bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def _lm(name, device, dtype="bfloat16", seq=0, batch=1, **cut):
+    """(config, run config, model with f32 weights drawn on ``device``
+    from the seed); ``cut`` replaces config fields (depth only)."""
+    import dataclasses
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(ARCHS[name], **cut)
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("serve", seq, batch,
+                                                  "decode"),
+                     compute_dtype=dtype, use_pallas=True)
+    return cfg, rcfg, M.init(cfg, SEED, device=device)
+
+
+def serve_numbers(label, cfg, rcfg, model, tokens, new_tokens):
+    """One ``generate()`` (timed, peak memory, the bucket-count kernel's
+    launches in it, its counter set to 0 just before), then the prefill
+    (median of 3) and 16 decode steps timed apart.  Returns a dict."""
+    import torch
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import generate, pad_cache
+    b, s = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    bucket_count_kernel.launches = 0
+    toks, gen_s = timed(lambda: generate(
+        cfg, rcfg, model, {"tokens": tokens}, max_new_tokens=new_tokens,
+        device=tokens.device))
+    launches = bucket_count_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if toks.shape != (b, new_tokens) or toks.dtype != torch.int32 or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"{label}: generate() gave {toks.dtype} "
+                             f"{tuple(toks.shape)} outside the vocab")
+    pre = []
+    for _ in range(3):
+        (logits, cache), sec = timed(lambda: M.prefill(
+            cfg, rcfg, model, {"tokens": tokens}))
+        pre.append(sec * 1e3)
+    if not torch.isfinite(logits[..., :cfg.vocab_size]).all():
+        raise AssertionError(f"{label}: prefill logits are not finite")
+    cache = pad_cache(cfg, cache, s + 16)
+    tok = logits.argmax(-1).to(torch.int32)
+    del logits
+
+    def decode():
+        c, t = cache, tok
+        for i in range(16):
+            lg, c = M.decode_step(cfg, rcfg, model, c, t, s + i)
+            t = lg.argmax(-1).to(torch.int32)
+    dec_ms = wall_s(decode) / 16 * 1e3
+    pre_ms = statistics.median(pre)
+    say(f"phase 11{label}: generate() {b} x {s} prompt tokens + "
+        f"{new_tokens} greedy, bf16: {gen_s:.2f} s, peak {peak:.2f} GiB; "
+        f"prefill median of 3: {pre_ms:.1f} ms ({', '.join(f'{t:.1f}' for t in pre)}), "
+        f"{b * s / pre_ms * 1e3:.0f} tokens/s; decode {dec_ms:.2f} ms/token "
+        f"at batch {b} ({b / dec_ms * 1e3:.0f} tokens/s); first tokens "
+        f"{toks[:, 0].tolist()}; bucket_count launches in generate() "
+        f"{launches}")
+    return dict(gen_s=gen_s, prefill_ms=pre_ms, decode_ms=dec_ms, peak=peak,
+                launches=launches)
+
+
+def _kv_as_cached(fn):
+    """``fn()`` with every self-attention K/V rounded to bf16 and back, as
+    the KV cache stores them.  A decode from such a prefill's cache must
+    match such a prefill of the whole sequence up to f32 rounding; on f32
+    K/V the prefill of the first S - k tokens sees K/V the decode steps
+    see only rounded."""
+    import torch
+    from repro_torch.models import attention
+    project_kv = attention.project_kv
+
+    def rounded(*args, **kw):
+        k, v = project_kv(*args, **kw)
+        return (k.to(torch.bfloat16).to(k.dtype),
+                v.to(torch.bfloat16).to(v.dtype))
+    attention.project_kv = rounded
+    try:
+        return fn()
+    finally:
+        attention.project_kv = project_kv
+
+
+def _recording(module, name, sink):
+    """Patch ``module.name`` with a wrapper that appends its arguments and
+    result to ``sink``; returns the undo."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
+        sink.append((args, out))
+        return out
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, fn)
+
+
+def phase11_phi(device):
+    """Phase 11a: phi3.5-moe at full width, 8 layers.  Returns the
+    bucket-count launches of its ``generate()``, the model and the
+    numbers of the count on layer 0's owner ids."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.kernels.ref import bucket_count_ref
+    from repro_torch.models import lm
+    from repro_torch.moe import moe_layer
+    from repro_torch.obs.timing import device_ms
+    b, s = PHI_PROMPT
+    t0 = time.perf_counter()
+    cfg, rcfg, model = _lm(PHI, device, seq=s + PHI_NEW, batch=b,
+                           num_layers=PHI_LAYERS)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.parameters())
+    full_params = ARCHS[PHI].param_count()
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.full_pattern) \
+        * cfg.num_blocks
+    say(f"phase 11a: {PHI}: d_model {cfg.d_model}, {cfg.num_heads} heads "
+        f"of {cfg.head_dim} ({cfg.num_kv_heads} KV), {cfg.num_experts} "
+        f"experts of {cfg.moe_d_ff}, top {cfg.experts_per_token}, vocab "
+        f"{cfg.vocab_size} padded to {cfg.padded_vocab}; {cfg.num_layers} of "
+        f"32 layers: {n_params} params ({n_params * 4 / 1e9:.1f} GB f32; "
+        f"the whole model {full_params / 1e9:.1f} B) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device, dtype=torch.int32)
+
+    # the main path: one generate(), the count kernel's launches counted
+    phi = serve_numbers("a", cfg, rcfg, model, tokens, PHI_NEW)
+    launches = phi["launches"]
+    forwards = PHI_NEW            # the prefill and PHI_NEW - 1 decode steps
+    if launches != n_moe * forwards:
+        raise AssertionError(f"bucket_count launched {launches} times, not "
+                             f"once per MoE layer per forward "
+                             f"({n_moe} x {forwards})")
+
+    # the prefill's metrics and layer 0's owner ids
+    seen = []
+    undo = _recording(moe_layer, "plan_buckets_sorted", seen)
+    try:
+        with torch.no_grad():
+            _, _, met = lm.forward(cfg, rcfg, model, tokens, mode="prefill")
+    finally:
+        undo()
+    dropped = int(met["moe_dropped"])
+    t, k, e = b * s, cfg.experts_per_token, cfg.num_experts
+    cap = moe_layer._capacity(cfg, t, dropless=True)
+    rows = e * cap
+    flops = 2 * 3 * rows * cfg.d_model * cfg.moe_d_ff
+    say(f"phase 11a: prefill moe_dropped {dropped} (dropless), moe_aux "
+        f"{float(met['moe_aux']):.4f}; dropless capacity C = T k = {cap}: "
+        f"{rows} expert rows for {t * k} assignments, padding share "
+        f"{1 - t * k / rows:.4f}; {flops / 1e12:.1f} TFLOP of expert GEMMs "
+        f"a layer, {flops * t * k / rows / 1e12:.2f} of them on real rows")
+    if dropped:
+        raise AssertionError(f"phase 11a: {dropped} assignments dropped")
+    owner = seen[0][0][0].contiguous()
+    del seen, met
+    got = bucket_count_kernel(owner, e)
+    exp = bucket_count_ref(owner, e)
+    if not torch.equal(got, exp):
+        raise AssertionError("bucket_count differs from its plain version "
+                             "on layer 0's owner ids")
+    ms = device_ms(lambda: bucket_count_kernel(owner, e))
+    call = call_ms(lambda: bucket_count_kernel(owner, e))
+    plain = device_ms(lambda: bucket_count_ref(owner, e))
+    library = device_ms(lambda: torch.bincount(owner, minlength=e))
+    bound = (4 * owner.numel() + 4 * e) / HBM_BYTES_PER_S * 1e3
+    say(f"phase 11a: bucket_count on layer 0's owner ids (N = T k = "
+        f"{owner.numel()}, {e} buckets, counts {got.tolist()}): equal to "
+        f"its plain version; kernel device {ms:.4f} ms, call {call:.4f} ms "
+        f" plain {plain:.4f} ms  torch.bincount {library:.4f} ms  bound "
+        f"(4N + 4B) bytes / 3.35 TB/s = {bound:.6f} ms; {n_moe} x kernel / "
+        f"prefill = {n_moe * ms / phi['prefill_ms']:.5f}")
+    return cfg, model, phi
+
+
+def phase11_phi_oracles(cfg, model, device):
+    """Phase 11c on phi3.5: layer 0's MoE (aam against dense, the
+    kernel-counted plan against bincount's), then decode against prefill,
+    in f32."""
+    import torch
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.coalescing import plan_buckets_sorted
+    from repro_torch.models import lm
+    from repro_torch.models import model as M
+    from repro_torch.moe import moe_layer
+    from repro_torch.serve.serve_step import pad_cache
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    layer = model.layers[0].mlp
+    x = torch.randn(PHI_ORACLE_T, cfg.d_model, generator=gen, device=device)
+    with torch.no_grad():
+        ya, ma = moe_layer.moe_apply_aam(cfg, layer, x, mode="prefill")
+        yd, md = moe_layer.moe_apply_dense(cfg, layer, x, mode="prefill")
+        _, experts, _ = moe_layer._route(cfg, layer, x)
+    d_moe = rel_diff(ya, yd)
+    owner = experts.reshape(-1)
+    valid = torch.ones_like(owner, dtype=torch.bool)
+    cap = moe_layer._capacity(cfg, PHI_ORACLE_T, dropless=True)
+    plans = [plan_buckets_sorted(owner, valid, cfg.num_experts, cap,
+                                 count_backend=cb) for cb in ("pallas", "jnp")]
+    same = all(torch.equal(getattr(plans[0][0], f), getattr(plans[1][0], f))
+               for f in ("owner", "position", "counts", "kept", "dropped")) \
+        and torch.equal(plans[0][1], plans[1][1])
+    say(f"phase 11c: phi3.5 layer 0's MoE at T = {PHI_ORACLE_T}, f32: "
+        f"moe_apply_aam vs moe_apply_dense {d_moe:.3g} of the largest "
+        f"(bound 1e-5), moe_dropped {int(ma['moe_dropped'])} and "
+        f"{int(md['moe_dropped'])}; the kernel-counted plan equals "
+        f"torch.bincount's: {same}")
+    if not (d_moe <= 1e-5 and same and int(ma["moe_dropped"]) == 0
+            == int(md["moe_dropped"])):
+        raise AssertionError("phase 11c: phi3.5 layer 0's MoE oracle")
+    del ya, yd, x, plans
+
+    ob, os_ = LM_ORACLE
+    f32 = RunConfig(model=cfg, shape=ShapeConfig("o", os_, ob, "decode"),
+                    compute_dtype="float32", use_pallas=True)
+    toks = torch.randint(0, cfg.vocab_size, (ob, os_), generator=gen,
+                         device=device, dtype=torch.int32)
+    full_routes, step_routes = [], []
+    with torch.no_grad():          # "prefill": dropless, as decode is
+        fresh, _, _ = lm.forward(cfg, f32, model, toks, mode="prefill")
+        undo = _recording(moe_layer, "_route", full_routes)
+        try:
+            full, _, _ = _kv_as_cached(lambda: lm.forward(
+                cfg, f32, model, toks, mode="prefill"))
+        finally:
+            undo()
+    head, c = _kv_as_cached(lambda: M.prefill(
+        cfg, f32, model, {"tokens": toks[:, :-DECODE_K]}))
+    c = pad_cache(cfg, c, os_)
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.full_pattern) \
+        * cfg.num_blocks
+    if len(full_routes) != n_moe:
+        raise AssertionError(f"phase 11c: the prefill recorded "
+                             f"{len(full_routes)} routings, not {n_moe}")
+    errs, fresh_errs, same_route = [], [], []
+    for pos in range(os_ - DECODE_K, os_):
+        step_routes.clear()
+        undo = _recording(moe_layer, "_route", step_routes)
+        try:
+            head, c = M.decode_step(cfg, f32, model, c, toks[:, pos, None],
+                                    pos)
+        finally:
+            undo()
+        if len(step_routes) != n_moe:
+            raise AssertionError(f"phase 11c: decode step {pos} recorded "
+                                 f"{len(step_routes)} routings, not {n_moe}")
+        got = head[:, 0, :cfg.vocab_size]
+        errs.append(rel_diff(got, full[:, pos, :cfg.vocab_size]))
+        fresh_errs.append(rel_diff(got, fresh[:, pos, :cfg.vocab_size]))
+        # the experts each layer chose for this position, in both runs
+        same_route.append(all(torch.equal(
+            step[1][1].sort(-1).values,
+            whole[1][1].reshape(ob, os_, -1)[:, pos].sort(-1).values)
+            for step, whole in zip(step_routes, full_routes)))
+    say(f"phase 11c: phi3.5, f32, {ob} x {os_}: prefill of {os_ - DECODE_K} "
+        f"+ {DECODE_K} decode steps vs the prefill of {os_}, both prefills "
+        f"with their K/V rounded to bf16 as the cache stores them: by step "
+        f"{', '.join(f'{e_:.3g}' for e_ in errs)} of the largest (bound "
+        f"1e-3), every layer's experts equal in both runs at "
+        f"{sum(same_route)} of {DECODE_K} steps (bound: all); against the "
+        f"prefill on f32 K/V (no bound: the router sees other inputs there "
+        f"than the bf16 cache gives decode, and a token whose experts "
+        f"nearly tie may take another one): "
+        f"{', '.join(f'{e_:.3g}' for e_ in fresh_errs)}")
+    if not (max(errs) <= 1e-3 and all(same_route)):
+        raise AssertionError(f"phase 11c: phi3.5 decode vs prefill {errs}, "
+                             f"routes equal {same_route}")
+
+
+def phase11_qwen(device):
+    """Phase 11b: qwen2-1.5b whole."""
+    import torch
+    b, s = QWEN_PROMPT
+    t0 = time.perf_counter()
+    cfg, rcfg, model = _lm(QWEN, device, seq=s + QWEN_NEW, batch=b)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in model.parameters())
+    say(f"phase 11b: {QWEN}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} KV) of "
+        f"{cfg.head_dim}, QKV bias, tied embeddings, vocab {cfg.vocab_size}"
+        f" padded to {cfg.padded_vocab}: {n_params} params drawn on the card"
+        f" in {time.perf_counter() - t0:.1f} s; the LM head's bf16 logits "
+        f"for all {b * s} positions take "
+        f"{b * s * cfg.padded_vocab * 2 / 2 ** 30:.2f} GiB")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=device, dtype=torch.int32)
+    qwen = serve_numbers("b", cfg, rcfg, model, tokens, QWEN_NEW)
+    if qwen["launches"]:
+        raise AssertionError("phase 11b: a dense model launched the "
+                             "bucket count")
+    return qwen
+
+
+def phase11_gemma(device):
+    """Phase 11c on gemma2-27b's published width, one local and one global
+    layer: the chunked attention path against the direct one, and decode
+    steps that wrap the local ring against the prefill, in f32."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import pad_cache
+    s = GEMMA_SEQ
+    cfg, f32, model = _lm(GEMMA, device, dtype="float32", seq=s,
+                          num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    toks = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                         device=device, dtype=torch.int32)
+    direct_cfg = dataclasses.replace(cfg, attn_chunk=s)
+    with torch.no_grad():
+        chunked, _, _ = lm.forward(cfg, f32, model, toks)
+        fresh = chunked[:, -1, :cfg.vocab_size].clone()
+        direct, _, _ = lm.forward(direct_cfg, f32, model, toks)
+        d_path = rel_diff(chunked[..., :cfg.vocab_size],
+                          direct[..., :cfg.vocab_size])
+        del chunked, direct
+        last = _kv_as_cached(lambda: lm.forward(
+            cfg, f32, model, toks)[0][:, -1, :cfg.vocab_size].clone())
+    head, c = _kv_as_cached(lambda: M.prefill(
+        cfg, f32, model, {"tokens": toks[:, :-DECODE_K]}))
+    c = pad_cache(cfg, c, s)
+    ring = c[0]["pos"].shape[-1]
+    for pos in range(s - DECODE_K, s):
+        head, c = M.decode_step(cfg, f32, model, c, toks[:, pos, None], pos)
+    d_dec = rel_diff(head[:, 0, :cfg.vocab_size], last)
+    d_fresh = rel_diff(head[:, 0, :cfg.vocab_size], fresh)
+    wrapped = sorted(c[0]["pos"][0].tolist()) == list(range(s - ring, s))
+    say(f"phase 11c: {GEMMA} at d_model {cfg.d_model}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, window {cfg.sliding_window}, softcaps "
+        f"{cfg.attn_softcap}/{cfg.logit_softcap}, post-norms, 2 layers "
+        f"(local, global), f32, 1 x {s} tokens: chunked (chunk "
+        f"{cfg.attn_chunk}) vs direct attention logits {d_path:.3g} of the "
+        f"largest (bound 1e-4); prefill of {s - DECODE_K} + {DECODE_K} "
+        f"decode steps vs the prefill of {s}, both prefills with their K/V "
+        f"rounded to bf16 as the cache stores them: {d_dec:.3g} (bound "
+        f"1e-3), vs the prefill on f32 K/V {d_fresh:.3g} (bound 1e-2); the "
+        f"local ring "
+        f"({ring} slots) holds positions {s - ring}..{s - 1}: {wrapped}")
+    if not (d_path <= 1e-4 and d_dec <= 1e-3 and d_fresh <= 1e-2
+            and wrapped):
+        raise AssertionError(f"phase 11c: gemma2 oracles {d_path} {d_dec} "
+                             f"{wrapped}")
+
+
+def phase_lm_families(device):
+    """Phase 11.  Returns the bucket-count launches of its main path
+    (phi3.5's ``generate()``)."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must not run in TF32 here")
+    cfg, model, phi = phase11_phi(device)
+    launches = phi["launches"]
+    phase11_phi_oracles(cfg, model, device)
+    del model
+    torch.cuda.empty_cache()
+    qwen = phase11_qwen(device)
+    torch.cuda.empty_cache()
+    phase11_gemma(device)
+    torch.cuda.empty_cache()
+    say(f"phase 11: done in {time.perf_counter() - t0:.1f} s; phi3.5 "
+        f"({PHI_LAYERS} layers) prefill {phi['prefill_ms']:.1f} ms, decode "
+        f"{phi['decode_ms']:.2f} ms/token, peak {phi['peak']:.2f} GiB; "
+        f"qwen2-1.5b prefill {qwen['prefill_ms']:.1f} ms, decode "
+        f"{qwen['decode_ms']:.2f} ms/token, peak {qwen['peak']:.2f} GiB; "
+        f"bucket_count launches {launches}")
+    return launches
 
 
 def main() -> int:
@@ -2070,10 +2475,13 @@ def main() -> int:
     serve_launches = phase_serving(g, device, single, slice_one, batch)
     del g, single, small, slice_one, batch
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
+    torch.cuda.empty_cache()
+    lm_launches = phase_lm_families(device)
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches)) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
+    launches["bucket_count"] += lm_launches
 
     kernels = [dict(name=name, route="cuda", source=src_path,
                     replaces=replaces, launches=launches[name],

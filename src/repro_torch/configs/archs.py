@@ -3,8 +3,8 @@ entry for entry, so a name means the same config in both packages.
 
 Each entry records the published config it was taken from.  Reduced smoke
 variants come from :func:`repro_torch.configs.base.smoke_model`.  The port
-runs ``family="ssm"`` (Mamba2) so far; the others raise
-``NotImplementedError`` when a model is built (ROADMAP Queue 1 item 9).
+serves every family: decoder-only through :mod:`repro_torch.models.lm`,
+whisper through :mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -136,3 +136,14 @@ ARCHS: dict[str, ModelConfig] = {
     "pixtral-12b": PIXTRAL,
     "whisper-small": WHISPER,
 }
+
+# long_500k requires sub-quadratic attention; the memory-feasible decoders
+# are the SSM/hybrid archs + gemma2 (alternating local windows; SP-sharded
+# global cache fits).  Pure full-attention archs skip.
+LONG_CONTEXT_OK = {"jamba-1.5-large-398b", "mamba2-780m", "gemma2-27b"}
+
+
+def skip_reason(arch: str, shape: str) -> str | None:
+    if shape == "long_500k" and arch not in LONG_CONTEXT_OK:
+        return "full-attention arch: 500k decode cache infeasible (DESIGN §5)"
+    return None

@@ -2,9 +2,9 @@
 ``repro.configs.base`` (the reference package is never imported).
 
 A :class:`ModelConfig` describes one architecture, a :class:`RunConfig`
-binds it to a shape and a compute dtype.  The fields and defaults are the
-reference's, so a config means the same in both packages; of the derived
-quantities, the port keeps the ones its model code reads.
+binds it to a shape and a compute dtype.  The fields, defaults, derived
+quantities and :data:`SHAPES` are the reference's, so a config means the
+same in both packages.
 """
 from __future__ import annotations
 
@@ -107,6 +107,63 @@ class ModelConfig:
     def num_blocks(self) -> int:
         return self.num_layers // len(self.pattern)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model FLOPs)."""
+        d, v = self.d_model, self.padded_vocab
+        n = v * d
+        if not self.tie_embeddings:
+            n += v * d
+        n += self.num_blocks * sum(
+            self._layer_params(spec) for spec in self.full_pattern)
+        if self.encoder_layers:
+            n += self.encoder_layers * self._layer_params(
+                LayerSpec("attn", "dense"))
+            # decoder cross-attention blocks (+ their norms)
+            n += self.num_layers * (self._attn_params() + self.d_model)
+        return n
+
+    def _attn_params(self) -> int:
+        d, h, kv, hd = self.d_model, self.num_heads, self.num_kv_heads, \
+            self.head_dim
+        p = d * h * hd + 2 * d * kv * hd + h * hd * d
+        if self.qkv_bias:
+            p += (h + 2 * kv) * hd
+        return p
+
+    def _layer_params(self, spec: LayerSpec) -> int:
+        d = self.d_model
+        n = 2 * d  # norms
+        if spec.mixer in ("attn", "attn_local"):
+            n += self._attn_params()
+        elif spec.mixer == "mamba":
+            din, st, g, nh = (self.d_inner, self.ssm_state, self.ssm_groups,
+                              self.ssm_heads)
+            n += d * (2 * din + 2 * g * st + nh)      # in_proj
+            n += self.ssm_conv_kernel * (din + 2 * g * st)  # conv
+            n += din * d                              # out_proj
+            n += 3 * nh                               # A, D, dt_bias
+        if spec.mlp == "dense":
+            mult = 3 if self.mlp_gated else 2
+            n += mult * d * self.d_ff
+        elif spec.mlp == "moe":
+            mult = 3 if self.mlp_gated else 2
+            n += self.num_experts * mult * d * self.moe_d_ff
+            n += d * self.num_experts                 # router
+        return n
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top-k experts only)."""
+        d = self.d_model
+        n = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        for spec in self.full_pattern:
+            ln = self._layer_params(spec)
+            if spec.mlp == "moe":
+                mult = 3 if self.mlp_gated else 2
+                ln -= self.num_experts * mult * d * self.moe_d_ff
+                ln += self.experts_per_token * mult * d * self.moe_d_ff
+            n += self.num_blocks * ln
+        return n
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:
@@ -116,11 +173,22 @@ class ShapeConfig:
     kind: str          # "train" | "prefill" | "decode"
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The reference's run configuration, field for field.  The port reads
-    ``compute_dtype`` and ``use_pallas``; the mesh, optimizer, remat, MoE
-    and attention fields wait for the slices that port those paths."""
+    """The reference's run configuration, field for field.  The port's
+    serving path reads ``compute_dtype``, ``use_pallas``, ``moe_impl``,
+    ``attn_causal_skip`` and ``seq_parallel`` (which keeps q whole in the
+    chunked attention, as the reference does; the port runs on one card,
+    so nothing is sharded); the mesh, optimizer and remat fields wait for
+    training."""
     model: ModelConfig
     shape: ShapeConfig
     multi_pod: bool = False
@@ -138,7 +206,8 @@ class RunConfig:
     serve_tp: bool = False
     seq_parallel: bool = False
     # the hand-written kernels where the reference has Pallas ones (the SSD
-    # chunk); False runs the plain einsum path
+    # chunk); False runs the plain einsum path.  The MoE's bucket count
+    # runs its kernel either way (plan_buckets_sorted's default).
     use_pallas: bool = False
     grad_compression: str = "none"
     seed: int = 0

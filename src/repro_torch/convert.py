@@ -90,8 +90,10 @@ def _flatten(tree, prefix=""):
 def to_lm_params(cfg, params, *, device="cuda") -> dict[str, torch.Tensor]:
     """The state dict of :class:`repro_torch.models.lm.LM` from the
     reference's LM params (``repro.models.model.init``), leaves as host
-    arrays.  The reference stacks each pattern position ``i`` over the
-    blocks: ``blocks[i][name][j]`` is layer ``j * len(pattern) + i``."""
+    arrays: every leaf of every pattern position (norms, the attention,
+    Mamba, dense-MLP and MoE weights) under the same name.  The reference
+    stacks each pattern position ``i`` over the blocks:
+    ``blocks[i][name][j]`` is layer ``j * len(pattern) + i``."""
     device = resolve_device(device)
 
     def put(a):
@@ -108,5 +110,31 @@ def to_lm_params(cfg, params, *, device="cuda") -> dict[str, torch.Tensor]:
                                  f"blocks, {cfg.name} has {cfg.num_blocks}")
             for j in range(cfg.num_blocks):
                 out[f"layers.{j * n + i}.{name}"] = put(a[j])
+    out["final_norm"] = put(params["final_norm"])
+    return out
+
+
+def to_encdec_params(cfg, params, *,
+                     device="cuda") -> dict[str, torch.Tensor]:
+    """The state dict of :class:`repro_torch.models.encdec.EncDec` from
+    the reference's whisper params (``repro.models.model.init`` of an
+    enc-dec config), leaves as host arrays: ``embed``, ``enc_pos``, the
+    ``encoder`` and ``decoder`` stacks (``encoder[name][l]`` is encoder
+    layer ``l``) and both final norms."""
+    device = resolve_device(device)
+
+    def put(a):
+        return torch.as_tensor(np.array(a), device=device)
+    out = {f"embed.{k}": put(a) for k, a in _flatten(params["embed"])}
+    out["enc_pos"] = put(params["enc_pos"])
+    for stack, n in (("encoder", cfg.encoder_layers),
+                     ("decoder", cfg.num_layers)):
+        for name, a in _flatten(params[stack]):
+            if a.shape[0] != n:
+                raise ValueError(f"{stack}.{name} stacks {a.shape[0]} "
+                                 f"layers, {cfg.name} has {n}")
+            for l in range(n):
+                out[f"{stack}.{l}.{name}"] = put(a[l])
+    out["enc_final_norm"] = put(params["enc_final_norm"])
     out["final_norm"] = put(params["final_norm"])
     return out

@@ -61,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import perf_model
 from repro_torch.core.commit import (AUTO, BACKENDS, CommitResult, CommitSpec,
                                      _pallas_supported, commit)
@@ -285,12 +286,13 @@ class AutoTuner:
 
     def _workload(self, n: int, v: int | None = None, *, op: str = "min",
                   dtype=torch.int32, width: int = 1, axis_width: int = 1,
-                  device="cpu"):
+                  device="cuda"):
         """Synthetic commit batch: n ``op``-messages into a [v] state on
         ``device`` (default ``v_cal``), drawn as the reference draws them.
         ``v`` reproduces the caller's duplicate-target factor n/v;
         ``axis_width`` > 1 a fused batch's composite-key layout (each
         message targets its own item's contiguous key range)."""
+        device = resolve_device(device)
         v = min(v or self.v_cal, 1 << 20)
         rng = np.random.default_rng(0)
         shape = (v,) if width == 1 else (v, width)
@@ -324,10 +326,10 @@ class AutoTuner:
     def calibrate(self, *, sort: bool, stats: bool, tile_m: int,
                   block_v: int, with_pallas: bool, op: str = "min",
                   dtype=torch.int32, width: int = 1,
-                  device="cpu") -> Calibration:
+                  device="cuda") -> Calibration:
         """Timed micro-commits -> per-tier affine fits (cached per knob
         set, device and (op, payload dtype, payload width))."""
-        device = torch.device(device)
+        device = resolve_device(device)
         kind = device_kind(device)
         key = ("cal", kind, sort, stats, tile_m, block_v, with_pallas, op,
                _dtype_name(dtype), width)
@@ -384,7 +386,7 @@ class AutoTuner:
     def race(self, finalists: dict, n: int, *, sort: bool, stats: bool,
              tile_m: int, block_v: int, v: int | None = None,
              op: str = "min", dtype=torch.int32, width: int = 1,
-             axis_width: int = 1, device="cpu") -> str:
+             axis_width: int = 1, device="cuda") -> str:
         """Head-to-head at (near) the workload's batch size.
 
         ``finalists`` maps backend -> the transaction size it would run
@@ -394,7 +396,7 @@ class AutoTuner:
         bucket, clamped to 32,768 messages and 2^20 vertices) and the
         clock decides.  ``axis_width`` (lanes or graphs of a fused batch)
         keys the race and shapes its workload."""
-        device = torch.device(device)
+        device = resolve_device(device)
         n = min(1 << (max(n, 2) - 1).bit_length(), 32768)
         v = min(v or self.v_cal, 1 << 20)   # the clamp of _workload, so
         #                                     the key matches what is timed
@@ -440,7 +442,7 @@ class AutoTuner:
     def policy(self, spec: CommitSpec, *, n: int, pallas_ok: bool,
                v: int | None = None, op: str = "min", dtype=torch.int32,
                width: int = 1, axis_width: int = 1,
-               device="cpu") -> TunerPolicy:
+               device="cuda") -> TunerPolicy:
         pol = self._policy(spec, n=n, pallas_ok=pallas_ok, v=v, op=op,
                            dtype=dtype, width=width, axis_width=axis_width,
                            device=device)
@@ -455,10 +457,11 @@ class AutoTuner:
     def _policy(self, spec: CommitSpec, *, n: int, pallas_ok: bool,
                 v: int | None = None, op: str = "min", dtype=torch.int32,
                 width: int = 1, axis_width: int = 1,
-                device="cpu") -> TunerPolicy:
+                device="cuda") -> TunerPolicy:
         """Backend + M* + ladder seed for an n-message workload against a
         [v] state (``v`` shapes the race's duplicate-target factor; None
         = the calibration default)."""
+        device = resolve_device(device)
         n = max(int(n), 1)
         base = dict(sort=spec.sort, stats=spec.stats, tile_m=spec.tile_m,
                     block_v=spec.block_v)

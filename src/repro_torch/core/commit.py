@@ -30,9 +30,16 @@ Differences from :mod:`repro.core.commit`:
 * ``sanitize`` (or ``REPRO_SANITIZE=1``) replays each commit with its
   messages permuted (:mod:`repro_torch.analysis.sanitize`) and raises
   ``SanitizeError`` at once on a difference.
-* Payloads are [n] per message; vector payloads come with the LM stack
-  (Queue 1 item 9).  The kernel tiers cast the payload to the state's
-  dtype before the launch.
+* Payloads are [n] per message, or vectors: [n, d] into a [V, d] state,
+  on ``atomic`` and ``coarse`` — ``add`` at any ``stats``, ``min``/``max``
+  at ``stats=False`` (``applied`` counts a message whose row changed in
+  any component), ``or`` at ``stats=False`` on the unsorted path only:
+  the cases the reference's commit runs; any other raises ``ValueError``.
+  The kernels take 1-D int32/float32 state and payload, so a ``pallas``
+  or ``fused`` request on a vector payload runs ``coarse``, where the
+  reference's ``commit()`` sends it: its dispatch rule, not a fallback
+  for a missing kernel.  The kernel tiers cast the payload to the
+  state's dtype before the launch.
 * Valid messages must target ``[0, V)``: targets outside are dropped on
   every tier (JAX's scatter wraps negative ids instead).
 """
@@ -59,7 +66,7 @@ _REDUCE = {"min": "amin", "max": "amax", "add": "sum", "or": "amax"}
 
 @dataclasses.dataclass
 class CommitResult:
-    state: torch.Tensor        # updated state [V]
+    state: torch.Tensor        # updated state [V] (or [V, d])
     success: torch.Tensor      # bool [n] — MF: message won; AS: valid mask
     conflicts: torch.Tensor    # int32 — duplicate-target messages
     applied: torch.Tensor      # int32 — messages that changed state
@@ -140,10 +147,6 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
         z = _zero(state.device)
         return CommitResult(state, torch.zeros((0,), dtype=torch.bool,
                                                device=state.device), z, z)
-    if state.dim() != 1 or msgs.payload.dim() != 1:
-        raise NotImplementedError(
-            "vector payloads come with the LM stack (ROADMAP Queue 1 "
-            "item 9)")
     if spec.backend == AUTO:
         from repro_torch.core.autotune import resolve_spec   # no cycle
         spec = resolve_spec(spec, state, msgs, op)
@@ -151,11 +154,34 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
     if backend in ("pallas", "fused") and not _pallas_supported(state, msgs,
                                                                 op):
         backend = "coarse"
+    if state.dim() != 1 or msgs.payload.dim() != 1:
+        _check_vector(state, msgs, op, spec, backend)
     res = _dispatch(state, msgs, op, spec, backend)
     if (spec.sanitize or _sanitize_env()) and msgs.capacity > 1:
         from repro_torch.analysis.sanitize import shadow_check
         shadow_check(state, msgs, op, spec, backend, res.state)
     return res
+
+
+def _check_vector(state, msgs: Messages, op: str, spec: CommitSpec,
+                  backend: str) -> None:
+    """Raise unless a vector commit is one the reference's tiers run."""
+    if state.shape[1:] != msgs.payload.shape[1:]:
+        raise ValueError(f"state rows {tuple(state.shape[1:])} != payload "
+                         f"rows {tuple(msgs.payload.shape[1:])}")
+    unsorted = backend == "atomic" or not spec.sort
+    if op == "add" or (not spec.stats and (
+            op in ("min", "max") or (op == "or" and unsorted))):
+        return
+    raise ValueError(
+        f"vector payloads take op 'add', or 'min'/'max' at stats=False "
+        f"('or' on the unsorted path), as the reference's commit does; "
+        f"got op={op!r}, stats={spec.stats}, backend={backend!r}")
+
+
+def _bcast(mask, val):
+    """``mask`` [n] shaped to broadcast against ``val`` [n, ...]."""
+    return mask.reshape(mask.shape + (1,) * (val.dim() - mask.dim()))
 
 
 def _sanitize_env() -> bool:
@@ -310,10 +336,12 @@ def _slot(mask, target, v: int) -> torch.Tensor:
 
 
 def _scatter(state, idx, src, op: str) -> torch.Tensor:
-    """``state`` with ``src`` reduced in at ``idx`` (``v`` = dropped)."""
+    """``state`` with ``src`` reduced in at ``idx`` (``v`` = dropped);
+    rows of a vector state take their message's row."""
     work = state.to(torch.uint8) if state.dtype == torch.bool else state
-    buf = torch.cat([work, work.new_zeros(1)])
-    buf.scatter_reduce_(0, idx, src.to(work.dtype), _REDUCE[op])
+    buf = torch.cat([work, work.new_zeros((1,) + tuple(work.shape[1:]))])
+    buf.scatter_reduce_(0, _bcast(idx, src).expand(src.shape),
+                        src.to(work.dtype), _REDUCE[op])
     return buf[:-1].to(state.dtype)
 
 
@@ -329,7 +357,7 @@ def atomic_commit(state: torch.Tensor, msgs: Messages, op: str,
     idx = _slot(msgs.valid, msgs.target, state.shape[0])
     val = msgs.payload
     if op == "add":
-        val = torch.where(msgs.valid, val, torch.zeros_like(val))
+        val = torch.where(_bcast(msgs.valid, val), val, torch.zeros_like(val))
     elif op == "or":
         # payload is a truth value: all tiers agree on max(state, val != 0)
         val = val != 0
@@ -391,9 +419,10 @@ def _resolved_commit(state, msgs: Messages, op: str, sort: bool,
     s_val = msgs.payload[order]
     s_valid = msgs.valid[order]
     if op == "add":
-        s_val = torch.where(s_valid, s_val, torch.zeros_like(s_val))
+        s_val = torch.where(_bcast(s_valid, s_val), s_val,
+                            torch.zeros_like(s_val))
     elif op == "or":
-        s_val = (s_valid & (s_val != 0)).to(torch.uint8)
+        s_val = (_bcast(s_valid, s_val) & (s_val != 0)).to(torch.uint8)
     elif s_val.dtype == torch.bool:
         # CUDA has no bool scatter-reduce; min/max of 0/1 are the same on
         # uint8 (the tuner calibrates `min` on a bool state leaf)
@@ -403,8 +432,9 @@ def _resolved_commit(state, msgs: Messages, op: str, sort: bool,
     first = torch.cat([true1, s_idx[1:] != s_idx[:-1]])
     last = torch.cat([first[1:], true1])
     run = torch.cumsum(first, 0) - 1
-    red = torch.empty_like(s_val).scatter_reduce_(0, run, s_val, _REDUCE[op],
-                                                  include_self=False)
+    red = torch.empty_like(s_val).scatter_reduce_(
+        0, _bcast(run, s_val).expand(s_val.shape), s_val, _REDUCE[op],
+        include_self=False)
     # one conflict-free write per distinct target (run results at `last`)
     w_idx = _slot(last, s_idx, v)
     new = _scatter(state, w_idx, red[run], op)
@@ -414,6 +444,8 @@ def _resolved_commit(state, msgs: Messages, op: str, sort: bool,
         conflicts = (s_valid.sum() - (first & s_valid).sum()).to(torch.int32)
         cs = s_idx.clamp(0, v - 1).long()
         changed = new[cs] != state[cs]
+        if changed.dim() > 1:     # vector payload: any component changed
+            changed = changed.flatten(1).any(1)
         applied = (last & s_valid & changed).sum().to(torch.int32)
         success = msgs.valid
     return CommitResult(new, success, conflicts, applied)

@@ -1,14 +1,15 @@
 """Serving launcher: batched prefill + greedy (or temperature) decode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --prompt-len 32 --new-tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-The flags are the reference launcher's (``repro.launch.serve``) plus
-``--device``.  Weights are drawn at random on the device from ``--seed``;
-the prompt is drawn with numpy from the same seed.  The SSD chunk runs
-through the hand-written kernel (``use_pallas``; its plain version on the
-CPU).  Mamba2 is the architecture the port runs so far, and the default.
+The flags and the default arch are the reference launcher's
+(``repro.launch.serve``) plus ``--device``.  Weights are drawn at random on
+the device from ``--seed``; the prompt, and whisper's frame or pixtral's
+patch-embedding stubs (bf16), are drawn with numpy from the same seed.
+The SSD chunk runs through the hand-written kernel (``use_pallas``) and
+the MoE's bucket count through its own; on the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.serve.serve_step import generate
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=sorted(ARCHS), default="mamba2-780m")
+    ap.add_argument("--arch", choices=sorted(ARCHS), default="qwen2-1.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -48,6 +49,13 @@ def main(argv=None):
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
         dtype=torch.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model)), dtype=torch.bfloat16)
+    if cfg.frontend == "patch":
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (args.batch, cfg.frontend_seq, cfg.d_model)),
+            dtype=torch.bfloat16)
     t0 = time.time()
     toks = generate(cfg, rcfg, model, batch, max_new_tokens=args.new_tokens,
                     temperature=args.temperature, seed=args.seed,

@@ -1,0 +1,284 @@
+"""Attention: GQA with RoPE, local/global windows, softcaps, KV caches.
+
+Port of ``repro.models.attention``.  Two numerically equivalent paths,
+held against each other by the tests as the reference's are:
+
+* ``direct``  — one [Sq, Sk] logits tensor; short sequences and decode
+  (Sq == 1).
+* ``chunked`` — flash-style attention in plain torch: q in chunks, an
+  online softmax over kv chunks.  Bounded memory for long prefills.  With
+  ``causal_skip`` each q chunk scans only its causal prefix of kv chunks.
+
+K/V are stored grouped ([B, S, KV, D]) and repeated to the full head
+count at use (``repeat_kv``: each kv head serves H/KV consecutive q
+heads).  Numerics follow the reference: logits and the softmax in f32,
+the softcap before the mask, ``NEG_INF = -1e30`` with a guard for fully
+masked rows, probabilities cast to ``v``'s dtype before P·V.  The
+reference has no Pallas kernel here, so neither path is a hand-written
+kernel: they are ``torch.matmul``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, ones, rmsnorm, rope, scalar
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """``wq`` [d, H, hd], ``wk``/``wv`` [d, KV, hd], ``wo`` [H, hd, d];
+    ``bq`` [H, hd], ``bk``/``bv`` [KV, hd] with ``qkv_bias`` (zeros);
+    ``q_norm``/``k_norm`` [hd] with ``qk_norm``."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
+                 dtype=torch.float32):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+            cfg.head_dim
+        dev = generator.device
+        self.wq = dense_init((d, h, hd), generator, dtype=dtype)
+        self.wk = dense_init((d, kv, hd), generator, dtype=dtype)
+        self.wv = dense_init((d, kv, hd), generator, dtype=dtype)
+        self.wo = dense_init((h, hd, d), generator, dtype=dtype)
+        if cfg.qkv_bias:
+            self.bq = nn.Parameter(torch.zeros(h, hd, device=dev, dtype=dtype))
+            self.bk = nn.Parameter(torch.zeros(kv, hd, device=dev,
+                                               dtype=dtype))
+            self.bv = nn.Parameter(torch.zeros(kv, hd, device=dev,
+                                               dtype=dtype))
+        if cfg.qk_norm:
+            self.q_norm = ones(hd, generator, dtype)
+            self.k_norm = ones(hd, generator, dtype)
+
+
+def _proj(x, w):
+    """x [B, S, d] @ w [d, H, D] -> [B, S, H, D] in x's dtype."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def project_q(cfg: ModelConfig, p: Attention, x, positions, *,
+              use_rope: bool = True):
+    q = _proj(x, p.wq)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+    if use_rope and cfg.pos_embedding == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def project_kv(cfg: ModelConfig, p: Attention, x, positions, *,
+               use_rope: bool = True):
+    k = _proj(x, p.wk)
+    v = _proj(x, p.wv)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(x.dtype)
+        v = v + p.bv.to(x.dtype)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+    if use_rope and cfg.pos_embedding == "rope":
+        k = rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def repeat_kv(x, num_heads: int):
+    """[B, S, KV, D] -> [B, S, H, D]: each kv head repeated H/KV times in
+    place (``jnp.repeat``, not a tile)."""
+    reps = num_heads // x.shape[2]
+    return x if reps == 1 else x.repeat_interleave(reps, dim=2)
+
+
+def _mask(q_pos, k_pos, *, causal: bool, window: int | None):
+    """q_pos [B, Sq], k_pos [B, Sk] -> bool [B, 1, Sq, Sk]; key slots with
+    pos < 0 (empty ring slots) are invalid."""
+    qp = q_pos[:, None, :, None]
+    kp = k_pos[:, None, None, :]
+    m = kp >= 0
+    if causal:
+        m = m & (kp <= qp)
+    if window is not None:
+        m = m & (kp > qp - window)
+    return m
+
+
+def _logits(q, k, softcap_val):
+    """q [B, Sq, H, D], k [B, Sk, H, D] -> f32 [B, H, Sq, Sk]: products of
+    the inputs summed in f32 (the reference's
+    ``preferred_element_type=f32``), then the softcap."""
+    logits = q.float().transpose(1, 2) @ k.float().permute(0, 2, 3, 1)
+    if softcap_val:
+        logits = torch.tanh(logits / softcap_val) * softcap_val
+    return logits
+
+
+def _direct(q, k, v, q_pos, k_pos, *, causal, window, softcap_val):
+    # q: [B, Sq, H, D] (already scaled); k, v: [B, Sk, H, D]
+    logits = _logits(q, k, softcap_val)
+    mask = _mask(q_pos, k_pos, causal=causal, window=window)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True).clamp_min(NEG_INF)  # fully masked rows
+    w = torch.exp(logits - m)
+    l = w.sum(-1, keepdim=True)
+    w = w / l.clamp_min(1e-30)
+    return (w.to(v.dtype) @ v.transpose(1, 2)).transpose(1, 2)
+
+
+def _chunk_step(q, q_pos, k_c, v_c, kpos_c, carry, *, causal, window,
+                softcap_val):
+    """Online softmax over one kv chunk: carry (m, l, acc) f32 [B, H, Cq],
+    [B, H, Cq], [B, H, Cq, D]."""
+    m_prev, l_prev, acc = carry
+    logits = _logits(q, k_c, softcap_val)
+    mask = _mask(q_pos, kpos_c, causal=causal, window=window)
+    logits = torch.where(mask, logits, NEG_INF)
+    m_cur = torch.maximum(m_prev, logits.amax(-1))
+    alpha = torch.exp(m_prev - m_cur)
+    w = torch.exp(logits - m_cur[..., None])
+    l_cur = l_prev * alpha + w.sum(-1)
+    pv = w.to(v_c.dtype) @ v_c.transpose(1, 2)            # [B, H, Cq, D]
+    acc = acc * alpha[..., None] + pv.float()
+    return m_cur, l_cur, acc
+
+
+def _chunked(q, k, v, q_pos, k_pos, *, causal, window, softcap_val,
+             chunk_q, chunk_k, causal_skip):
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    nq, nk = sq // cq, sk // ck
+    if sq % cq or sk % ck:
+        raise ValueError(f"chunks {cq}/{ck} do not divide {sq}/{sk}")
+    skip = causal_skip and causal and window is None
+
+    outs = []
+    for i in range(nq):
+        q_c, qpos_c = q[:, i * cq:(i + 1) * cq], q_pos[:, i * cq:(i + 1) * cq]
+        # with causal_skip, chunk i attends to kv chunks [0, last_k]
+        n_kv = ((i + 1) * cq - 1) // ck + 1 if skip else nk
+        carry = (q.new_full((b, h, cq), NEG_INF, dtype=torch.float32),
+                 q.new_zeros((b, h, cq), dtype=torch.float32),
+                 q.new_zeros((b, h, cq, d), dtype=torch.float32))
+        for j in range(n_kv):
+            sl = slice(j * ck, (j + 1) * ck)
+            carry = _chunk_step(q_c, qpos_c, k[:, sl], v[:, sl],
+                                k_pos[:, sl], carry, causal=causal,
+                                window=window, softcap_val=softcap_val)
+        _, l, acc = carry
+        out = acc / l.clamp_min(1e-30)[..., None]
+        outs.append(out.transpose(1, 2))                   # [B, Cq, H, D]
+    return torch.cat(outs, dim=1).to(v.dtype)
+
+
+def attention_core(q, k, v, q_pos, k_pos, *, causal=True, window=None,
+                   softcap_val=None, chunk=2048, causal_skip=False,
+                   force_direct=False, kv_chunk_only=False):
+    """q: [B, Sq, H, D]; k, v: [B, Sk, H, D] (kv already repeated to H).
+
+    q_pos/k_pos: int [B, Sq] / [B, Sk]; k slots with pos < 0 are invalid.
+    The direct path for decode, ``force_direct`` or Sk <= ``chunk``, else
+    the chunked one (``kv_chunk_only`` keeps q whole)."""
+    d = q.shape[-1]
+    q = q * scalar(d ** -0.5, q)
+    sq, sk = q.shape[1], k.shape[1]
+    if force_direct or sq == 1 or sk <= chunk:
+        return _direct(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                       softcap_val=softcap_val)
+    cq = sq if kv_chunk_only else _largest_divisor_leq(sq, max(chunk // 2, 1))
+    ck = _largest_divisor_leq(sk, chunk)
+    return _chunked(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                    softcap_val=softcap_val, chunk_q=cq, chunk_k=ck,
+                    causal_skip=causal_skip and not kv_chunk_only)
+
+
+def _largest_divisor_leq(n: int, cap: int) -> int:
+    for c in range(min(cap, n), 0, -1):
+        if n % c == 0:
+            return c
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# Full attention layer (projections + core + output), with KV cache support.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class AttnCall:
+    """Static attention-call options resolved from the layer kind."""
+    causal: bool = True
+    window: int | None = None
+    use_rope: bool = True
+
+
+def _out(p: Attention, o, dtype):
+    """[B, S, H, D] @ wo [H, D, d] -> [B, S, d]."""
+    h, k, d = p.wo.shape
+    return o.flatten(2) @ p.wo.to(dtype).reshape(h * k, d)
+
+
+def attn_apply(cfg: ModelConfig, p: Attention, x, positions, call: AttnCall,
+               *, chunk=None, causal_skip=False, seq_parallel=False):
+    """Training / prefill self-attention (no cache).  Returns (out, (k,
+    v)), k and v grouped [B, S, KV, D].  ``seq_parallel`` keeps q whole
+    in the chunked path, as the reference does under sequence
+    parallelism; the port shards nothing."""
+    q = project_q(cfg, p, x, positions, use_rope=call.use_rope)
+    k, v = project_kv(cfg, p, x, positions, use_rope=call.use_rope)
+    out = attention_core(
+        q, repeat_kv(k, cfg.num_heads), repeat_kv(v, cfg.num_heads),
+        positions, positions, causal=call.causal, window=call.window,
+        softcap_val=cfg.attn_softcap, chunk=chunk or cfg.attn_chunk,
+        causal_skip=causal_skip, kv_chunk_only=seq_parallel)
+    return _out(p, out, x.dtype), (k, v)
+
+
+def attn_decode(cfg: ModelConfig, p: Attention, x, pos: int, cache_k,
+                cache_v, cache_pos, call: AttnCall):
+    """Single-token decode.  x: [B, 1, d]; pos: the position (uniform
+    over the batch).
+
+    cache_k/v: [B, W, KV, D]; cache_pos: [W] int32 (absolute position per
+    slot, -1 = empty); the token goes to ring slot ``pos % W``.  Returns
+    (out, new cache_k, new cache_v, new cache_pos); the caches passed in
+    are not modified."""
+    b, w = x.shape[0], cache_k.shape[1]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = project_q(cfg, p, x, positions, use_rope=call.use_rope)
+    k, v = project_kv(cfg, p, x, positions, use_rope=call.use_rope)
+    slot = pos % w
+    cache_k, cache_v, cache_pos = (cache_k.clone(), cache_v.clone(),
+                                   cache_pos.clone())
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    cache_pos[slot] = pos
+    kf = repeat_kv(cache_k.to(x.dtype), cfg.num_heads)
+    vf = repeat_kv(cache_v.to(x.dtype), cfg.num_heads)
+    k_pos = cache_pos[None, :].expand(b, w)
+    out = attention_core(q, kf, vf, positions, k_pos, causal=call.causal,
+                         window=call.window, softcap_val=cfg.attn_softcap,
+                         force_direct=True)
+    return _out(p, out, x.dtype), cache_k, cache_v, cache_pos
+
+
+def cross_attn_apply(cfg: ModelConfig, p: Attention, x, enc_k, enc_v):
+    """Encoder-decoder cross attention (whisper).  enc_k/v: [B, Se, KV,
+    D]; every encoder slot is valid, no mask, no RoPE."""
+    b, sq = x.shape[0], x.shape[1]
+    positions = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
+    q = project_q(cfg, p, x, positions, use_rope=False)
+    kf = repeat_kv(enc_k.to(x.dtype), cfg.num_heads)
+    vf = repeat_kv(enc_v.to(x.dtype), cfg.num_heads)
+    se = enc_k.shape[1]
+    k_pos = torch.arange(se, dtype=torch.int32,
+                         device=x.device)[None].expand(b, se)
+    out = attention_core(q, kf, vf, positions, k_pos, causal=False,
+                         window=None, softcap_val=cfg.attn_softcap,
+                         force_direct=(sq == 1))
+    return _out(p, out, x.dtype)

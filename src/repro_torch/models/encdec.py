@@ -1,0 +1,153 @@
+"""Encoder-decoder backbone (whisper-small): port of
+``repro.models.encdec``.
+
+The conv/mel frontend is a stub, as in the reference: the caller gives
+precomputed frame embeddings [B, encoder_seq, d_model].  The encoder is a
+bidirectional attention stack with its own position table ``enc_pos``;
+the decoder is causal self-attention, cross-attention and an MLP per
+layer, with learned positions.  The cross K/V are computed once at
+prefill and kept in the cache.  The cache is one dict of tensors stacked
+over the decoder layers: ``k``, ``v`` (bf16), ``pos``, ``cross_k``,
+``cross_v`` (bf16).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.lm import _embed_in, _merge_metrics
+
+
+class EncLayer(nn.Module):
+    """``norm1``, the self-attention ``mixer``, ``norm2`` and ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
+                 dtype=torch.float32):
+        super().__init__()
+        self.norm1 = L.ones(cfg.d_model, generator, dtype)
+        self.mixer = attn.Attention(cfg, generator, dtype=dtype)
+        self.norm2 = L.ones(cfg.d_model, generator, dtype)
+        self.mlp = L.MLP(cfg, generator, dtype=dtype)
+
+
+class DecLayer(EncLayer):
+    """An encoder layer plus ``norm_cross`` and the ``cross`` attention."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
+                 dtype=torch.float32):
+        super().__init__(cfg, generator, dtype=dtype)
+        self.norm_cross = L.ones(cfg.d_model, generator, dtype)
+        self.cross = attn.Attention(cfg, generator, dtype=dtype)
+
+
+class EncDec(nn.Module):
+    """``embed``, ``enc_pos`` [encoder_seq, d], ``encoder`` and
+    ``decoder`` layers, ``enc_final_norm`` and ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
+                 dtype=torch.float32):
+        super().__init__()
+        self.embed = L.Embedding(cfg, generator, dtype=dtype)
+        self.enc_pos = L.dense_init((cfg.encoder_seq, cfg.d_model),
+                                    generator, scale=0.02, dtype=dtype)
+        self.encoder = nn.ModuleList(EncLayer(cfg, generator, dtype=dtype)
+                                     for _ in range(cfg.encoder_layers))
+        self.decoder = nn.ModuleList(DecLayer(cfg, generator, dtype=dtype)
+                                     for _ in range(cfg.num_layers))
+        self.enc_final_norm = L.ones(cfg.d_model, generator, dtype)
+        self.final_norm = L.ones(cfg.d_model, generator, dtype)
+
+
+def encode(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, frames):
+    """frames: [B, Se, d] stub embeddings -> encoder states [B, Se, d]."""
+    cd = getattr(torch, rcfg.compute_dtype)
+    x = frames.to(cd) + model.enc_pos.to(cd)[None]
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=x.device)[None].expand(b, s)
+    call = attn.AttnCall(causal=False, window=None, use_rope=False)
+    for p in model.encoder:
+        h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
+        y, _ = attn.attn_apply(cfg, p.mixer, h, positions, call)
+        x = x + y
+        h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
+        x = x + L.mlp_apply(cfg, p.mlp, h)
+    return L.rmsnorm(x, model.enc_final_norm, cfg.norm_eps)
+
+
+def _cross_kv(cfg: ModelConfig, p: DecLayer, enc):
+    k, v = attn.project_kv(cfg, p.cross, enc, None, use_rope=False)
+    return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def forward(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, tokens,
+            frames, mode: str = "train"):
+    """Teacher-forced decoder over the encoder states.  Returns (logits,
+    cache or None, metrics); the cache only with ``mode="prefill"``."""
+    enc = encode(cfg, rcfg, model, frames.to(model.enc_pos.device))
+    x, positions = _embed_in(cfg, rcfg, model, tokens)
+    call = attn.AttnCall(causal=True, window=None, use_rope=False)
+    entries = []
+    for p in model.decoder:
+        h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
+        y, (k, v) = attn.attn_apply(cfg, p.mixer, h, positions, call)
+        x = x + y
+        ck, cv = _cross_kv(cfg, p, enc)
+        h = L.rmsnorm(x, p.norm_cross, cfg.norm_eps)
+        x = x + attn.cross_attn_apply(cfg, p.cross, h, ck, cv)
+        h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
+        x = x + L.mlp_apply(cfg, p.mlp, h)
+        if mode == "prefill":
+            entries.append({"k": k.to(torch.bfloat16),
+                            "v": v.to(torch.bfloat16),
+                            "pos": positions[0].to(torch.int32),
+                            "cross_k": ck, "cross_v": cv})
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    logits = L.lm_logits(cfg, model.embed, x)
+    cache = ({k: torch.stack([e[k] for e in entries]) for k in entries[0]}
+             if mode == "prefill" else None)
+    return logits, cache, _merge_metrics([], x.device)
+
+
+def init_cache(cfg: ModelConfig, rcfg: RunConfig, batch: int, max_len: int,
+               *, device) -> dict:
+    n, bf16 = cfg.num_layers, torch.bfloat16
+    kv = (n, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    cross = (n, batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=bf16, device=device),
+            "v": torch.zeros(kv, dtype=bf16, device=device),
+            "pos": torch.full((n, max_len), -1, dtype=torch.int32,
+                              device=device),
+            "cross_k": torch.zeros(cross, dtype=bf16, device=device),
+            "cross_v": torch.zeros(cross, dtype=bf16, device=device)}
+
+
+def decode_step(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, cache,
+                token, pos: int):
+    """token: [B, 1]; one step against the cached self and cross K/V.
+    Returns (logits [B, 1, V], the new cache)."""
+    x, _ = _embed_in(cfg, rcfg, model, token, pos_offset=pos)
+    call = attn.AttnCall(causal=True, window=None, use_rope=False)
+    ks, vs, ps = [], [], []
+    for l, p in enumerate(model.decoder):
+        h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
+        y, ck, cv, cp = attn.attn_decode(cfg, p.mixer, h, pos,
+                                         cache["k"][l], cache["v"][l],
+                                         cache["pos"][l], call)
+        x = x + y
+        h = L.rmsnorm(x, p.norm_cross, cfg.norm_eps)
+        x = x + attn.cross_attn_apply(cfg, p.cross, h, cache["cross_k"][l],
+                                      cache["cross_v"][l])
+        h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
+        x = x + L.mlp_apply(cfg, p.mlp, h)
+        ks.append(ck)
+        vs.append(cv)
+        ps.append(cp)
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    new_cache = {"k": torch.stack(ks), "v": torch.stack(vs),
+                 "pos": torch.stack(ps), "cross_k": cache["cross_k"],
+                 "cross_v": cache["cross_v"]}
+    return L.lm_logits(cfg, model.embed, x), new_cache

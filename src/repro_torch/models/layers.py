@@ -1,15 +1,17 @@
-"""Shared building blocks of the LM stack: the weight init, RMSNorm, the
-token embedding and the LM head.  Port of ``repro.models.layers``; weights
-keep the reference's layout (``[in, out]``, applied as ``x @ w``), so a
-reference parameter carries over as it is.
+"""Shared building blocks of the LM stack: the weight init, RMSNorm, RoPE,
+the MLP, the token embedding and the LM head.  Port of
+``repro.models.layers``; weights keep the reference's layout (``[in,
+out]``, applied as ``x @ w``), so a reference parameter carries over as it
+is.
 
-RoPE and the MLP, and the gemma-style options (embedding scale, final
-logit softcap, zero-centred norms), wait for the dense family (ROADMAP
-Queue 1 item 9) and raise :class:`NotImplementedError` until then.
+Numerics follow the reference: norms and RoPE angles in f32, the
+embedding scale and the softcaps in the compute dtype, and the non-gated
+MLP's GELU in its tanh form (``jax.nn.gelu``'s default, not torch's).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -17,13 +19,14 @@ from repro_torch.configs.base import ModelConfig
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 9)")
+        f"{what} is not ported yet (ROADMAP Queue 1 item 9, training)")
 
 
 def dense_init(shape, generator: torch.Generator, *, scale=None,
                dtype=torch.float32) -> nn.Parameter:
     """Normal weights scaled by ``fan_in ** -0.5`` (or ``scale``), drawn
-    on the generator's device."""
+    on the generator's device.  ``fan_in`` is ``shape[0]``, as in the
+    reference (for expert weights [E, d, ff] that is E)."""
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = fan_in ** -0.5 if scale is None else scale
     w = torch.randn(shape, generator=generator, device=generator.device,
@@ -31,12 +34,92 @@ def dense_init(shape, generator: torch.Generator, *, scale=None,
     return nn.Parameter(w.to(dtype))
 
 
-def rmsnorm(x, w, eps: float = 1e-6):
-    """RMSNorm computed in f32, returned in ``x.dtype``."""
+def ones(n: int, generator: torch.Generator, dtype) -> nn.Parameter:
+    """A norm weight of ones on the generator's device."""
+    return nn.Parameter(torch.ones(n, device=generator.device, dtype=dtype))
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` rounded to ``like``'s dtype, as ``jnp.asarray(value,
+    dtype)`` rounds it (in bf16, sqrt(4608) becomes 68.0)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x, w, eps: float = 1e-6, *, zero_centered: bool = False):
+    """RMSNorm computed in f32, returned in ``x.dtype``; ``zero_centered``
+    (gemma) scales by ``1 + w``."""
     dt = x.dtype
     x = x.float()
     y = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
-    return (y * w.float()).to(dt)
+    w = w.float()
+    if zero_centered:
+        w = 1.0 + w
+    return (y * w).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions broadcastable to [..., S].  The
+    half-split rotation (``x[:D/2]`` with ``x[D/2:]``), angles in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., None].float() * freq           # [..., S, half]
+    angles = angles[..., None, :]                          # [..., S, 1, half]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated SwiGLU or plain GELU)
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """``wi_gate`` [d, ff] (gated only), ``wi`` [d, ff], ``wo`` [ff, d]."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 d_ff: int | None = None, *, dtype=torch.float32):
+        super().__init__()
+        d_ff = d_ff or cfg.d_ff
+        d = cfg.d_model
+        if cfg.mlp_gated:
+            self.wi_gate = dense_init((d, d_ff), generator, dtype=dtype)
+        self.wi = dense_init((d, d_ff), generator, dtype=dtype)
+        self.wo = dense_init((d_ff, d), generator, dtype=dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(cfg: ModelConfig, p: MLP, x):
+    h = x @ p.wi.to(x.dtype)
+    if cfg.mlp_gated:
+        g = x @ p.wi_gate.to(x.dtype)
+        h = F.silu(g) * h
+    else:
+        h = gelu(h)
+    return h @ p.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
 
 
 class Embedding(nn.Module):
@@ -59,28 +142,34 @@ class Embedding(nn.Module):
 
 def embed_tokens(cfg: ModelConfig, p: Embedding, tokens, compute_dtype):
     """tokens [B, S] -> [B, S, d] in ``compute_dtype``.  Gathers, then
-    casts: the same values as the reference's cast of the whole table."""
+    casts: the same values as the reference's cast of the whole table.
+    ``scale_embeddings`` multiplies by ``d_model ** 0.5`` rounded to the
+    compute dtype first."""
+    x = p.embedding[tokens.long()].to(compute_dtype)
     if cfg.scale_embeddings:
-        raise not_ported("the embedding scale (gemma2)")
-    return p.embedding[tokens.long()].to(compute_dtype)
+        x = x * scalar(cfg.d_model ** 0.5, x)
+    return x
 
 
 def add_positions(cfg: ModelConfig, p: Embedding, x, positions):
     """Adds learned position embeddings; RoPE is applied in attention."""
     if cfg.pos_embedding == "learned":
-        x = x + p.pos_embedding.to(x.dtype)[positions.long()]
+        x = x + p.pos_embedding[positions.long()].to(x.dtype)
     return x
 
 
+def softcap(x, cap):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
 def lm_logits(cfg: ModelConfig, p: Embedding, x):
-    """x [B, S, d] -> logits [B, S, V]; the padded vocab entries are
-    -1e30."""
-    if cfg.logit_softcap:
-        raise not_ported("the final-logit softcap (gemma2)")
+    """x [B, S, d] -> logits [B, S, V]: the final-logit softcap, then the
+    padded vocab entries set to -1e30."""
     if cfg.tie_embeddings:
         logits = x @ p.embedding.to(x.dtype).T
     else:
         logits = x @ p.lm_head.to(x.dtype)
+    logits = softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         pad_mask = torch.arange(cfg.padded_vocab,
                                 device=x.device) < cfg.vocab_size

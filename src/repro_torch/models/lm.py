@@ -1,51 +1,57 @@
-"""Decoder LM over a repeating layer pattern: the Mamba2 (``family="ssm"``)
-path of ``repro.models.lm``.
+"""Decoder LM over a repeating heterogeneous layer pattern: port of
+``repro.models.lm``.
 
-The stack is ``num_layers`` layers, layer ``l`` of kind
-``cfg.full_pattern[l % len(pattern)]``, run one after another in a Python
-loop (the reference scans over ``num_blocks`` repeats of the pattern).
-Caches keep the reference's layout: a list over pattern positions ``i``,
-each a dict of tensors stacked over blocks ``j``, so ``cache[i][k][j]``
-belongs to layer ``j * len(pattern) + i``.
-
-Ported: Mamba mixers with no MLP, for train, prefill and decode.  The
-attention mixers, the dense and MoE MLPs, post-norms and frontends raise
-:class:`NotImplementedError` (ROADMAP Queue 1 item 9).  The reference's
-sharding constraints have no counterpart: the port runs on one card.
+One code path serves every decoder-only family (dense, moe, hybrid, ssm,
+vlm with its patch-prefix stub); whisper lives in
+:mod:`repro_torch.models.encdec`.  The stack is ``num_layers`` layers,
+layer ``l`` of kind ``cfg.full_pattern[l % len(pattern)]``, each an
+attention (``attn``/``attn_local``) or Mamba2 mixer and a dense, MoE or
+no MLP, run one after another in a Python loop (the reference scans over
+``num_blocks`` repeats of the pattern).  Caches keep the reference's
+layout: a list over pattern positions ``i``, each a dict of tensors
+stacked over blocks ``j``, so ``cache[i][k][j]`` belongs to layer
+``j * len(pattern) + i``.  The reference's sharding constraints have no
+counterpart: the port runs on one card.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig, RunConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import Mamba2Mixer, ssm_apply, ssm_decode
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for a config that needs a path the port does not have yet."""
-    for spec in cfg.full_pattern:
-        if spec.mixer != "mamba":
-            raise L.not_ported(f"the {spec.mixer!r} mixer")
-        if spec.mlp != "none":
-            raise L.not_ported(f"the {spec.mlp!r} MLP")
-    if cfg.use_post_norm:
-        raise L.not_ported("post-norms (gemma2)")
-    if cfg.frontend:
-        raise L.not_ported(f"the {cfg.frontend!r} frontend stub")
+from repro_torch.moe import moe_layer
 
 
 class Layer(nn.Module):
-    """The pre-norm ``norm1`` and a Mamba2 ``mixer``."""
+    """``norm1`` and the ``mixer``; ``post_norm1`` with post-norms; with an
+    MLP, ``norm2``, the ``mlp`` (dense or MoE) and ``post_norm2``."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
-                 dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec,
+                 generator: torch.Generator, *, dtype=torch.float32):
         super().__init__()
-        self.norm1 = nn.Parameter(torch.ones(cfg.d_model,
-                                             device=generator.device,
-                                             dtype=dtype))
-        self.mixer = Mamba2Mixer(cfg, generator, dtype=dtype)
+        d = cfg.d_model
+        self.norm1 = L.ones(d, generator, dtype)
+        if spec.mixer in ("attn", "attn_local"):
+            self.mixer = attn.Attention(cfg, generator, dtype=dtype)
+        elif spec.mixer == "mamba":
+            self.mixer = Mamba2Mixer(cfg, generator, dtype=dtype)
+        else:
+            raise ValueError(spec.mixer)
+        if cfg.use_post_norm:
+            self.post_norm1 = L.ones(d, generator, dtype)
+        if spec.mlp != "none":
+            self.norm2 = L.ones(d, generator, dtype)
+            if spec.mlp == "dense":
+                self.mlp = L.MLP(cfg, generator, dtype=dtype)
+            elif spec.mlp == "moe":
+                self.mlp = moe_layer.MoE(cfg, generator, dtype=dtype)
+            else:
+                raise ValueError(spec.mlp)
+            if cfg.use_post_norm:
+                self.post_norm2 = L.ones(d, generator, dtype)
 
 
 class LM(nn.Module):
@@ -55,29 +61,95 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
                  dtype=torch.float32):
         super().__init__()
-        check_ported(cfg)
+        pattern = cfg.full_pattern
         self.embed = L.Embedding(cfg, generator, dtype=dtype)
         self.layers = nn.ModuleList(
-            Layer(cfg, generator, dtype=dtype) for _ in range(cfg.num_layers))
-        self.final_norm = nn.Parameter(torch.ones(
-            cfg.d_model, device=generator.device, dtype=dtype))
+            Layer(cfg, pattern[l % len(pattern)], generator, dtype=dtype)
+            for l in range(cfg.num_layers))
+        self.final_norm = L.ones(cfg.d_model, generator, dtype)
 
 
-def apply_layer(cfg: ModelConfig, rcfg: RunConfig, p: Layer, x, *,
-                cache=None, mode: str = "train"):
-    """One layer.  Returns (x, new cache entry); the entry is None in
-    ``"train"`` mode.  The prefill's conv state is stored in bf16, as the
-    reference stores it; decode returns it in the compute dtype."""
-    h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
-    if mode == "decode":
-        y, (cs, hs) = ssm_decode(cfg, p.mixer, h, cache["conv"],
-                                 cache["ssm"])
-        new_cache = {"conv": cs, "ssm": hs}
+# ---------------------------------------------------------------------------
+# Layer application (shared by train forward / prefill / decode)
+# ---------------------------------------------------------------------------
+
+
+def _attn_call(cfg: ModelConfig, spec: LayerSpec) -> attn.AttnCall:
+    window = cfg.sliding_window if spec.mixer == "attn_local" else None
+    return attn.AttnCall(causal=True, window=window,
+                         use_rope=cfg.pos_embedding == "rope")
+
+
+def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
+                p: Layer, x, positions, cache=None, pos=None,
+                mode: str = "train"):
+    """One layer.  Returns (x, new cache entry, metrics); the entry is
+    None in ``"train"`` mode, metrics are the MoE's (empty otherwise).
+    The prefill stores K/V and the Mamba conv state in bf16, as the
+    reference does; decode returns the conv state in the compute dtype."""
+    metrics = {}
+    zc = cfg.use_post_norm
+    h = L.rmsnorm(x, p.norm1, cfg.norm_eps, zero_centered=zc)
+    if spec.mixer in ("attn", "attn_local"):
+        call = _attn_call(cfg, spec)
+        if mode == "decode":
+            y, ck, cv, cp = attn.attn_decode(
+                cfg, p.mixer, h, pos, cache["k"], cache["v"], cache["pos"],
+                call)
+            new_cache = {"k": ck, "v": cv, "pos": cp}
+        else:
+            y, (k, v) = attn.attn_apply(
+                cfg, p.mixer, h, positions, call,
+                causal_skip=rcfg.attn_causal_skip,
+                seq_parallel=rcfg.seq_parallel)
+            new_cache = _prefill_cache(cfg, spec, k, v, positions, mode)
+    else:  # mamba
+        if mode == "decode":
+            y, (cs, hs) = ssm_decode(cfg, p.mixer, h, cache["conv"],
+                                     cache["ssm"])
+            new_cache = {"conv": cs, "ssm": hs}
+        else:
+            y, (cs, hs) = ssm_apply(cfg, p.mixer, h,
+                                    use_pallas=rcfg.use_pallas)
+            new_cache = ({"conv": cs.to(torch.bfloat16), "ssm": hs}
+                         if mode == "prefill" else None)
+    if cfg.use_post_norm:
+        y = L.rmsnorm(y, p.post_norm1, cfg.norm_eps, zero_centered=True)
+    x = x + y
+    if spec.mlp != "none":
+        h = L.rmsnorm(x, p.norm2, cfg.norm_eps, zero_centered=zc)
+        if spec.mlp == "dense":
+            y = L.mlp_apply(cfg, p.mlp, h)
+        else:
+            b, s, d = h.shape
+            y2d, metrics = moe_layer.moe_apply(cfg, p.mlp,
+                                               h.reshape(b * s, d),
+                                               impl=rcfg.moe_impl, mode=mode)
+            y = y2d.reshape(b, s, d)
+        if cfg.use_post_norm:
+            y = L.rmsnorm(y, p.post_norm2, cfg.norm_eps, zero_centered=True)
+        x = x + y
+    return x, new_cache, metrics
+
+
+def _prefill_cache(cfg: ModelConfig, spec: LayerSpec, k, v, positions,
+                   mode: str):
+    if mode != "prefill":
+        return None
+    # local layers keep only the trailing window (ring layout: slot = pos % W)
+    s = k.shape[1]
+    if spec.mixer == "attn_local" and cfg.sliding_window and \
+            cfg.sliding_window < s:
+        w = cfg.sliding_window
+        k, v = k[:, -w:], v[:, -w:]
+        pos_slice = positions[0, -w:]
+        # re-order so slot i holds the position with pos % w == i
+        order = torch.argsort(pos_slice % w, stable=True)
+        k, v, pos_slice = k[:, order], v[:, order], pos_slice[order]
     else:
-        y, (cs, hs) = ssm_apply(cfg, p.mixer, h, use_pallas=rcfg.use_pallas)
-        new_cache = ({"conv": cs.to(torch.bfloat16), "ssm": hs}
-                     if mode == "prefill" else None)
-    return x + y, new_cache
+        pos_slice = positions[0]
+    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
+            "pos": pos_slice.to(torch.int32)}
 
 
 def _stack(cfg: ModelConfig, entries: list[dict]) -> list[dict]:
@@ -88,56 +160,100 @@ def _stack(cfg: ModelConfig, entries: list[dict]) -> list[dict]:
              for k in entries[i]} for i in range(n)]
 
 
-def _embed_in(cfg: ModelConfig, rcfg: RunConfig, model: LM, tokens,
-              pos_offset: int = 0):
-    x = L.embed_tokens(cfg, model.embed, tokens,
-                       getattr(torch, rcfg.compute_dtype))
+# ---------------------------------------------------------------------------
+# Full forward (train / prefill) and decode
+# ---------------------------------------------------------------------------
+
+
+def _embed_in(cfg: ModelConfig, rcfg: RunConfig, model, tokens,
+              extra_embeds=None, pos_offset: int = 0):
+    """Token embeddings (after the ``extra_embeds`` prefix, the vlm/audio
+    stub) and their positions [B, S] int32."""
+    cd = getattr(torch, rcfg.compute_dtype)
+    x = L.embed_tokens(cfg, model.embed, tokens, cd)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(device=x.device, dtype=cd), x], dim=1)
     b, s, _ = x.shape
     positions = (torch.arange(s, dtype=torch.int32, device=x.device)
                  + pos_offset).expand(b, s)
-    return L.add_positions(cfg, model.embed, x, positions)
+    return L.add_positions(cfg, model.embed, x, positions), positions
+
+
+def _merge_metrics(mets: list[dict], device) -> dict:
+    """The layers' MoE metrics summed; zeros where no layer has an MoE."""
+    out: dict[str, torch.Tensor] = {}
+    for m in mets:
+        for k_, v_ in m.items():
+            out[k_] = out[k_] + v_ if k_ in out else v_
+    if not out:
+        out = {"moe_dropped": torch.zeros((), dtype=torch.int32,
+                                          device=device),
+               "moe_aux": torch.zeros((), dtype=torch.float32,
+                                      device=device)}
+    return out
 
 
 def forward(cfg: ModelConfig, rcfg: RunConfig, model: LM, tokens,
-            mode: str = "train"):
-    """tokens: [B, S] -> (logits [B, S, V], cache or None).
+            extra_embeds=None, mode: str = "train"):
+    """tokens: [B, S] -> (logits [B, S', V], cache or None, metrics).
 
-    ``mode="prefill"`` also returns the stacked SSM cache."""
-    x = _embed_in(cfg, rcfg, model, tokens)
-    entries = []
-    for layer in model.layers:
-        x, entry = apply_layer(cfg, rcfg, layer, x, mode=mode)
+    S' = S plus the ``extra_embeds`` prefix.  ``mode="prefill"`` also
+    returns the stacked KV/SSM cache."""
+    x, positions = _embed_in(cfg, rcfg, model, tokens, extra_embeds)
+    pattern = cfg.full_pattern
+    entries, mets = [], []
+    for l, layer in enumerate(model.layers):
+        x, entry, met = apply_layer(cfg, rcfg, pattern[l % len(pattern)],
+                                    layer, x, positions, mode=mode)
         entries.append(entry)
-    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+        mets.append(met)
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps,
+                  zero_centered=cfg.use_post_norm)
     logits = L.lm_logits(cfg, model.embed, x)
-    return logits, (_stack(cfg, entries) if mode == "prefill" else None)
+    cache = _stack(cfg, entries) if mode == "prefill" else None
+    return logits, cache, _merge_metrics(mets, x.device)
 
 
 def init_cache(cfg: ModelConfig, rcfg: RunConfig, batch: int, max_len: int,
                *, device) -> list[dict]:
-    """Zero cache for decoding from scratch (the prefill's shapes).
-    ``max_len`` sizes attention caches; SSM states are fixed-size."""
-    check_ported(cfg)
-    nb = cfg.num_blocks
-    conv = (nb, batch, cfg.ssm_conv_kernel - 1,
-            cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
-    ssm = (nb, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
-    return [{"conv": torch.zeros(conv, dtype=torch.bfloat16, device=device),
-             "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
-            for _ in cfg.full_pattern]
+    """Zero cache for decoding from scratch (the prefill's shapes):
+    attention K/V bf16 [B, W, KV, D] with every ``pos`` -1 (W = max_len,
+    or the window for local layers); SSM states fixed-size."""
+    nb, bf16 = cfg.num_blocks, torch.bfloat16
+    entries = []
+    for spec in cfg.full_pattern:
+        if spec.mixer in ("attn", "attn_local"):
+            w = max_len
+            if spec.mixer == "attn_local" and cfg.sliding_window:
+                w = min(max_len, cfg.sliding_window)
+            kv = (nb, batch, w, cfg.num_kv_heads, cfg.head_dim)
+            e = {"k": torch.zeros(kv, dtype=bf16, device=device),
+                 "v": torch.zeros(kv, dtype=bf16, device=device),
+                 "pos": torch.full((nb, w), -1, dtype=torch.int32,
+                                   device=device)}
+        else:
+            conv = (nb, batch, cfg.ssm_conv_kernel - 1,
+                    cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state)
+            ssm = (nb, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state)
+            e = {"conv": torch.zeros(conv, dtype=bf16, device=device),
+                 "ssm": torch.zeros(ssm, dtype=torch.float32, device=device)}
+        entries.append(e)
+    return entries
 
 
 def decode_step(cfg: ModelConfig, rcfg: RunConfig, model: LM, cache, token,
                 pos: int):
     """token: [B, 1] at position ``pos``.  Returns (logits [B, 1, V], the
     new cache)."""
-    x = _embed_in(cfg, rcfg, model, token, pos_offset=pos)
-    n = len(cfg.full_pattern)
+    x, _ = _embed_in(cfg, rcfg, model, token, pos_offset=pos)
+    pattern = cfg.full_pattern
+    n = len(pattern)
     entries = []
     for l, layer in enumerate(model.layers):
         entry = {k: v[l // n] for k, v in cache[l % n].items()}
-        x, entry = apply_layer(cfg, rcfg, layer, x, cache=entry,
-                               mode="decode")
+        x, entry, _ = apply_layer(cfg, rcfg, pattern[l % n], layer, x, None,
+                                  cache=entry, pos=pos, mode="decode")
         entries.append(entry)
-    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps,
+                  zero_centered=cfg.use_post_norm)
     return L.lm_logits(cfg, model.embed, x), _stack(cfg, entries)

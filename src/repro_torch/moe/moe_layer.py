@@ -1,0 +1,162 @@
+"""Mixture-of-Experts on Atomic Active Messages.
+
+Port of ``repro.moe.moe_layer``.  A token routed to an expert is an
+atomic active message: target = expert, payload = activation, handler =
+the expert MLP, combine = a weighted accumulate.  Two dispatch paths:
+
+* ``aam``   — the T·k token→expert assignments are bucketed per expert by
+  the coalescing planner (:func:`repro_torch.core.coalescing.
+  plan_buckets_sorted`, whose histogram is the hand-written bucket-count
+  kernel on a card) into an ``[E, C, d]`` buffer; each token then gathers
+  its top-k results back (the FR return path).  The default.
+* ``dense`` — GShard-style one-hot dispatch: the oracle.
+
+Both drop over-capacity assignments with the same (arrival-order)
+priority, so they agree.  Outside ``"train"`` the capacity is dropless
+(C = T·k), so a stepwise decode reproduces the batched forward.  The
+train-time expert-parallel path (``impl="aam_shmap"`` in ``"train"``)
+waits for training.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.coalescing import plan_buckets_sorted, scatter_to_buckets
+from repro_torch.models.layers import dense_init, gelu, not_ported
+
+
+class MoE(nn.Module):
+    """``router`` [d, E]; per expert ``wi_gate`` (gated only), ``wi``
+    [E, d, ff] and ``wo`` [E, ff, d]."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, *,
+                 dtype=torch.float32):
+        super().__init__()
+        d, e, ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+        self.router = dense_init((d, e), generator, dtype=dtype)
+        if cfg.mlp_gated:
+            self.wi_gate = dense_init((e, d, ff), generator, dtype=dtype)
+        self.wi = dense_init((e, d, ff), generator, dtype=dtype)
+        self.wo = dense_init((e, ff, d), generator, dtype=dtype)
+
+
+def _route(cfg: ModelConfig, p: MoE, x):
+    """x: [T, d] -> (weights [T, k] f32, experts [T, k] int32, router
+    probs [T, E] f32).  The top k come from a stable descending sort, so
+    equal probabilities go to the lower expert id, as ``lax.top_k``
+    breaks ties."""
+    logits = (x @ p.router.to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    w, e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    w, e = w[:, :k], e[:, :k]
+    w = w / w.sum(-1, keepdim=True)                      # renormalize top-k
+    return w, e.to(torch.int32), probs
+
+
+def _expert_ffn(cfg: ModelConfig, p: MoE, xb):
+    """xb: [E, C, d] -> [E, C, d] through each expert's MLP."""
+    h = torch.bmm(xb, p.wi.to(xb.dtype))
+    if cfg.mlp_gated:
+        g = torch.bmm(xb, p.wi_gate.to(xb.dtype))
+        h = F.silu(g) * h
+    else:
+        h = gelu(h)
+    return torch.bmm(h, p.wo.to(xb.dtype))
+
+
+def _capacity(cfg: ModelConfig, t: int, dropless: bool = False) -> int:
+    if dropless:
+        # inference: every assignment fits even if all tokens pick one
+        # expert, so stepwise decode reproduces the batched forward
+        c = t * cfg.experts_per_token
+    else:
+        c = int(t * cfg.experts_per_token * cfg.capacity_factor
+                / cfg.num_experts)
+    return max(8, -(-c // 8) * 8)   # round up to 8 lanes
+
+
+def aux_loss(cfg: ModelConfig, probs, experts):
+    """Switch-style load-balancing loss."""
+    e = cfg.num_experts
+    me = probs.mean(0)                                   # [E]
+    fe = F.one_hot(experts[:, 0].long(), e).float().mean(0)
+    return e * (me * fe).sum()
+
+
+def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
+    """AAM dispatch.  x: [T, d] -> (y [T, d], metrics
+    ``{"moe_dropped", "moe_aux"}``)."""
+    t, d = x.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    cap = _capacity(cfg, t, dropless=mode != "train")
+    w, experts, probs = _route(cfg, p, x)
+
+    # flatten the T x k assignments into one message batch
+    owner = experts.reshape(-1)                          # [T*k]
+    token = torch.arange(t, device=x.device).repeat_interleave(k)
+    valid = torch.ones(t * k, dtype=torch.bool, device=x.device)
+    plan, _ = plan_buckets_sorted(owner, valid, e, cap)
+
+    # coalesced payload: the [E, C, d] activation buffer
+    xb = scatter_to_buckets(plan, x[token], e, cap, fill=0)
+    yb = _expert_ffn(cfg, p, xb)
+
+    out = _combine(yb, plan, experts, w, cap)
+    return out, {"moe_dropped": plan.dropped,
+                 "moe_aux": aux_loss(cfg, probs, experts)}
+
+
+def _combine(yb, plan, experts, w, cap: int):
+    """The FR return path: each token gathers its k expert outputs from
+    ``yb`` [E, C, d] at ``expert * C + position`` and sums them weighted
+    by its kept top-k weights."""
+    t, k = experts.shape
+    e, _, d = yb.shape
+    pos = plan.position.reshape(t, k).long()
+    kept = plan.kept.reshape(t, k)
+    flat = experts.long() * cap + pos.clamp(0, cap - 1)  # [T, k]
+    y = yb.reshape(e * cap, d)[flat]                     # [T, k, d]
+    wk = torch.where(kept, w, 0.0).to(yb.dtype)
+    return torch.einsum("tkd,tk->td", y, wk)
+
+
+def moe_apply_dense(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
+    """GShard one-hot dispatch (the oracle).  O(T·E·C) memory: small T."""
+    t, d = x.shape
+    k, e = cfg.experts_per_token, cfg.num_experts
+    cap = _capacity(cfg, t, dropless=mode != "train")
+    w, experts, probs = _route(cfg, p, x)
+
+    onehot = F.one_hot(experts.long(), e)                # [T, k, E]
+    kth = onehot.sum(1)                                  # [T, E] (0/1)
+    pos = torch.cumsum(kth, 0) - kth                     # [T, E] rank
+    pos_k = (onehot * pos[:, None, :]).sum(-1)           # [T, k]
+    keep_k = pos_k < cap
+    poh = F.one_hot(torch.where(keep_k, pos_k, cap), cap + 1)[..., :cap] \
+        .to(x.dtype)                                     # [T, k, C]
+    oh = onehot.to(x.dtype)
+    dmat = torch.einsum("tke,tkc->tec", oh, poh)
+    xb = torch.einsum("td,tec->ecd", x, dmat)
+    yb = _expert_ffn(cfg, p, xb)
+    wmat = torch.einsum("tk,tke,tkc->tec", w.to(x.dtype), oh, poh)
+    out = torch.einsum("ecd,tec->td", yb, wmat)
+    dropped = (t * k - keep_k.sum()).to(torch.int32)
+    return out, {"moe_dropped": dropped,
+                 "moe_aux": aux_loss(cfg, probs, experts)}
+
+
+def moe_apply(cfg: ModelConfig, p: MoE, x2d, impl: str = "aam",
+              mode: str = "train"):
+    """``impl``: ``"aam"``, ``"dense"`` or ``"aam_shmap"``.  Inference
+    modes are dropless; ``"aam_shmap"`` outside ``"train"`` serves through
+    the aam path, as the reference's does (its expert-parallel buffers are
+    sized for train capacity)."""
+    if impl == "dense":
+        return moe_apply_dense(cfg, p, x2d, mode=mode)
+    if impl == "aam_shmap" and mode == "train":
+        raise not_ported("the expert-parallel MoE (moe/shmap_moe.py)")
+    return moe_apply_aam(cfg, p, x2d, mode=mode)

@@ -30,7 +30,12 @@ def _pad_entry(e, tgt: int):
 def pad_cache(cfg: ModelConfig, cache, target_len: int):
     """Grow prefill caches to decode capacity.  Global-attention entries pad
     their seq dim to ``target_len``; sliding-window entries to the ring size
-    min(window, target); SSM states are fixed-size and pass through."""
+    min(window, target); SSM states are fixed-size and pass through.  Ring
+    arithmetic stays valid because prefill slots satisfy slot = pos % W
+    for every W >= S.  The enc-dec cache (one dict) pads its self-attention
+    K/V; its cross K/V are fixed-size."""
+    if not isinstance(cache, list):
+        return _pad_entry(cache, target_len)
     out = []
     for spec, e in zip(cfg.full_pattern, cache):
         if spec.mixer == "attn_local" and cfg.sliding_window:
@@ -57,16 +62,20 @@ def sample(logits, generator=None, temperature: float = 0.0):
 def generate(cfg: ModelConfig, rcfg: RunConfig, model, batch, *,
              max_new_tokens: int, temperature: float = 0.0, seed: int = 0,
              device="cuda"):
-    """Prefill the prompt batch ``{"tokens": [B, S]}``, then decode
+    """Prefill the prompt batch ``{"tokens": [B, S]}`` (plus ``"frames"``
+    for whisper or ``"patch_embeds"`` for the vlm prefix), then decode
     ``max_new_tokens`` tokens.  ``model`` lies on ``device``.  Returns
     tokens [B, max_new_tokens] int32."""
     dev = resolve_device(device)
     model_dev = model.embed.embedding.device
     if model_dev.type != dev.type:
         raise ValueError(f"model on {model_dev}, generate asked for {dev}")
-    tokens = torch.as_tensor(batch["tokens"], device=model_dev)
-    prompt_len = tokens.shape[1]
-    logits, cache = M.prefill(cfg, rcfg, model, {"tokens": tokens})
+    batch = {k: torch.as_tensor(v, device=model_dev)
+             for k, v in batch.items()}
+    prompt_len = batch["tokens"].shape[1]
+    if cfg.frontend == "patch":
+        prompt_len += cfg.frontend_seq
+    logits, cache = M.prefill(cfg, rcfg, model, batch)
     cache = pad_cache(cfg, cache, prompt_len + max_new_tokens)
     generator = torch.Generator(device=model_dev).manual_seed(seed)
     tok = sample(logits, generator, temperature)

@@ -158,7 +158,7 @@ def test_policy_with_same_fits_matches_reference(fits, op, monkeypatch):
                 jpol = jt._policy(JSpec(**spec), n=n, pallas_ok=pallas_ok,
                                   v=512, op=op, axis_width=4)
                 tpol = tt._policy(TSpec(**spec), n=n, pallas_ok=pallas_ok,
-                                  v=512, op=op, axis_width=4)
+                                  v=512, op=op, axis_width=4, device="cpu")
                 assert _fields(tpol) == _fields(jpol), (n, pallas_ok, kw)
                 assert tr == jr
 

@@ -212,3 +212,83 @@ def test_messages_helpers():
     assert isinstance(c, Messages) and c.capacity == 3
     assert c.target.dtype == torch.int32 and int(c.count()) == 2
     assert FF_MF.tag == "FF&MF"
+
+
+# vector payloads: [n, d] messages into a [V, d] state, the cases the
+# reference's tiers run (add at any stats; min/max at stats=False; or at
+# stats=False on the unsorted path)
+VECTOR_CASES = [("add", True, np.float32), ("add", False, np.float32),
+                ("add", True, np.int32), ("min", False, np.int32),
+                ("max", False, np.float32)]
+
+
+def _vector_batch(op, dtype, seed, v=13, n=90, d=3):
+    rng = np.random.default_rng(seed)
+    tgt = rng.integers(0, v, n)
+    val = rng.integers(-20, 20, (n, d)).astype(dtype)
+    if dtype == np.float32:
+        val = val / np.float32(7)
+    valid = rng.random(n) < 0.8
+    fill = {"min": 5, "max": -5}.get(op, 0)
+    state = np.full((v, d), fill, dtype)
+    state[rng.random(v) < 0.3] = 0
+    return state, tgt, val, valid
+
+
+@pytest.mark.parametrize("m", [None, 7])
+@pytest.mark.parametrize("backend", TC.BACKENDS)
+@pytest.mark.parametrize("op,stats,dtype", VECTOR_CASES)
+def test_vector_payload_parity(op, stats, dtype, backend, m):
+    """State and telemetry equal the reference's; ``pallas`` and ``fused``
+    run ``coarse``, as the reference's ``commit()`` sends them."""
+    state, tgt, val, valid = _vector_batch(op, dtype, seed=len(op) + 3)
+    spec = dict(m=m, stats=stats)
+    jr, tr = _both(state, tgt, val, valid, op, backend=backend, **spec)
+    _assert_result(jr, tr, f"{op}/{backend}/m={m}",
+                   float_add=op == "add" and dtype == np.float32)
+    if backend in ("pallas", "fused"):
+        cr = TC.commit(to_state(state, device="cpu"),
+                       to_messages(tgt, val, valid, device="cpu"), op,
+                       TC.CommitSpec(backend="coarse", **spec))
+        for field in FIELDS:
+            assert torch.equal(getattr(tr, field), getattr(cr, field))
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_vector_applied_counts_rows_changed_in_any_component(sort):
+    """``coarse`` at stats=False: a message whose row changed in one
+    component counts once; ``or`` runs unsorted only, as in the
+    reference."""
+    state = np.zeros((4, 3), np.int32)
+    tgt, valid = np.array([0, 0, 2, 3]), np.ones(4, bool)
+    val = np.array([[0, 1, 0], [0, 0, 0], [2, 2, 2], [0, 0, 0]], np.int32)
+    if sort:
+        jr, tr = _both(state, tgt, val, valid, "max", backend="coarse",
+                       stats=False)
+        _assert_result(jr, tr, "max")
+        assert int(tr.applied) == 2 and int(tr.conflicts) == 1
+    else:
+        jr, tr = _both(state, tgt, val, valid, "or", backend="coarse",
+                       sort=False, stats=False)
+        _assert_result(jr, tr, "or")
+        np.testing.assert_array_equal(tr.state.numpy()[[0, 2]],
+                                      [[0, 1, 0], [1, 1, 1]])
+
+
+@pytest.mark.parametrize("op,stats,backend", [
+    ("min", True, "coarse"), ("max", True, "atomic"), ("or", False, "coarse"),
+    ("first", False, "atomic"), ("first", True, "pallas")])
+def test_vector_payload_rejects_what_the_reference_cannot_run(op, stats,
+                                                              backend):
+    state, tgt, val, valid = _vector_batch("add", np.int32, seed=1)
+    if op == "first":
+        state[:] = -1
+    with pytest.raises(ValueError):
+        JC.commit(jnp.asarray(state),
+                  j_messages(jnp.asarray(tgt, jnp.int32), jnp.asarray(val),
+                             jnp.asarray(valid)), op,
+                  JC.CommitSpec(backend=backend, stats=stats))
+    with pytest.raises(ValueError, match="vector payloads"):
+        TC.commit(to_state(state, device="cpu"),
+                  to_messages(tgt, val, valid, device="cpu"), op,
+                  TC.CommitSpec(backend=backend, stats=stats))

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, the wave engine
-and the graph service on the card against the CPU, and the Mamba2
-serving path on its kernel path against its plain path.
+and the graph service on the card against the CPU, the Mamba2 serving
+path on its kernel path against its plain path, and every LM family at
+smoke width on the card against the CPU (f32 logits within 1e-4 of the
+largest; the MoE plans' bucket counts bit for bit).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -981,3 +983,113 @@ def test_supervised_continuous_serving_on_card(cuda, tmp_path):
     ref.drain()
     for a, t in zip(rows, want):
         _same_answer(a, ref.result(t))
+
+
+# ---------------------------------------------------------------------------
+# every decoder family and whisper at smoke width
+# ---------------------------------------------------------------------------
+
+FAMILY_TOL = {"float32": 1e-4, "bfloat16": 0.05}
+
+
+def _family_batch(cfg, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 80),
+                                     generator=gen, dtype=torch.int32)}
+    if cfg.encoder_layers:
+        batch["frames"] = torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                      generator=gen)
+    if cfg.frontend == "patch":
+        batch["patch_embeds"] = torch.randn(2, cfg.frontend_seq, cfg.d_model,
+                                            generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def _rel(a, b):
+    return float((a.float().cpu() - b.float().cpu()).abs().max()
+                 / b.float().cpu().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ARCHS))
+def test_family_on_card_matches_cpu(cuda, name):
+    """The same weights on the CPU and the card, f32: the prefill's logits
+    and 4 decode steps fed the CPU's greedy tokens within 1e-4 of the
+    largest logit; on the card the bucket-count kernel launches once per
+    MoE layer per forward and the SSD kernel once per Mamba layer per
+    prefill."""
+    cfg = smoke_model(ARCHS[name])
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 100, 2, "decode"),
+                     compute_dtype="float32", use_pallas=True)
+    cpu_model = M.init(cfg, 3, device="cpu")
+    card_model = M.init(cfg, 3, device="cpu").to(cuda)
+    n_moe = sum(s.mlp == "moe" for s in cfg.full_pattern) * cfg.num_blocks
+    n_ssm = sum(s.mixer == "mamba" for s in cfg.full_pattern) \
+        * cfg.num_blocks
+    outs = {}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        batch = _family_batch(cfg, dev)
+        counts = (bucket_count_kernel.launches, ssd_chunk_kernel.launches)
+        logits, cache = M.prefill(cfg, rcfg, model, batch)
+        if dev == "cuda":
+            assert bucket_count_kernel.launches - counts[0] == n_moe
+            assert ssd_chunk_kernel.launches - counts[1] == n_ssm
+        prompt = batch["tokens"].shape[1] + (
+            cfg.frontend_seq if cfg.frontend == "patch" else 0)
+        outs[dev] = (logits, pad_cache(cfg, cache, prompt + 4), prompt)
+    (cl, cc, prompt), (gl, gc, _) = outs["cpu"], outs["cuda"]
+    v = cfg.vocab_size
+    assert _rel(gl[..., :v], cl[..., :v]) <= FAMILY_TOL["float32"]
+    for i in range(4):
+        tok = cl.argmax(-1).to(torch.int32)
+        cl, cc = M.decode_step(cfg, rcfg, cpu_model, cc, tok, prompt + i)
+        gl, gc = M.decode_step(cfg, rcfg, card_model, gc, tok.to(cuda),
+                               prompt + i)
+        assert _rel(gl[..., :v], cl[..., :v]) <= FAMILY_TOL["float32"], i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buckets,k", [(16, 2), (128, 8)])
+@pytest.mark.parametrize("t", [1, 512, 8192])
+def test_moe_plans_on_card_match_bincount(cuda, buckets, k, t):
+    """MoE owner ids at N = T x k (each token's k distinct experts, as
+    phi3.5 and qwen3-moe route them): the kernel-counted plan equals the
+    ``torch.bincount`` plan, for dropless and train capacities."""
+    gen = torch.Generator(device=cuda).manual_seed(t + buckets)
+    owner = torch.rand(t, buckets, generator=gen, device=cuda) \
+        .topk(k, -1).indices.reshape(-1).to(torch.int32)
+    valid = torch.ones_like(owner, dtype=torch.bool)
+    for cap in (t * k, max(8, t * k // buckets)):
+        before = bucket_count_kernel.launches
+        pk, ok = plan_buckets_sorted(owner, valid, buckets, cap,
+                                     count_backend="pallas")
+        assert bucket_count_kernel.launches == before + 1
+        pj, oj = plan_buckets_sorted(owner, valid, buckets, cap,
+                                     count_backend="jnp")
+        for field in ("owner", "position", "counts", "kept", "dropped"):
+            assert torch.equal(getattr(pk, field), getattr(pj, field)), field
+        assert torch.equal(ok, oj)
+        assert torch.equal(pk.counts, torch.bincount(
+            owner.long(), minlength=buckets).to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jamba_ssd_kernel_path_matches_einsum_path(cuda, dtype):
+    """jamba at smoke width on the card: the prefill's Mamba layers through
+    the SSD kernel (one launch each) against the einsum path, logits
+    within 1e-4 (f32) or 0.05 (bf16) of the largest."""
+    cfg = smoke_model(ARCHS["jamba-1.5-large-398b"])
+    model = M.init(cfg, 0, device=cuda)
+    batch = _family_batch(cfg, cuda, seed=5)
+    n_ssm = sum(s.mixer == "mamba" for s in cfg.full_pattern)
+    out = {}
+    for use_pallas in (True, False):
+        rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 80, 2, "prefill"),
+                         compute_dtype=dtype, use_pallas=use_pallas)
+        before = ssd_chunk_kernel.launches
+        out[use_pallas], _ = M.prefill(cfg, rcfg, model, batch)
+        assert ssd_chunk_kernel.launches - before == (n_ssm if use_pallas
+                                                      else 0)
+    v = cfg.vocab_size
+    assert _rel(out[True][..., :v], out[False][..., :v]) <= FAMILY_TOL[dtype]
