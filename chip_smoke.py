@@ -116,14 +116,38 @@ Phases, one or more lines each:
    layers (local, global) on 1 x 8192 tokens: the chunked attention path
    against the direct one, and an 8184 prefill + 8 decode steps
    (wrapping the local ring) against the 8192 prefill.
+12. training, after phase 11: (a) phi3.5-moe-42b-a6.6b at its published
+   width, 2 of its 32 layers (2,864,861,184 parameters: f32 weights,
+   gradients and AdamW's m and v take 45.8 GB), bf16 compute,
+   ``remat="full"``, AdamW at the reference's defaults, 6 steps of
+   ``make_train_step`` on 4 x 2048 ``TokenStream(seed=0)`` tokens: ms a
+   step (median of steps 2-6), tokens/s, peak memory, and each step's
+   loss, grad norm, ``moe_dropped`` and ``moe_aux``, every loss and norm
+   finite; the bucket-count kernel exactly twice per MoE layer per
+   microbatch per step (forward and remat recompute); (b) qwen2-1.5b
+   whole, 4 steps on 4 x 2048 at ``microbatches=2``; (c) f32 oracles at
+   smoke width: 3 phi3.5 steps on the card against the CPU from the
+   same weights (loss rtol 1e-5, parameters atol 1e-5; the first step's
+   gradients at rtol 1e-4 / atol 1e-6, an update from the same
+   gradients at 1e-6; whether a second card run repeats the first bit
+   for bit is printed), every plan of the card's run equal to
+   ``count_backend="jnp"``'s; a
+   ``TrainSupervisor`` with a fault at step 6 against an uninterrupted
+   run (one restart, atol 1e-5); ``launch.train.main`` twice on one
+   checkpoint directory, the second resuming; smoke Mamba2 training on
+   the plain SSD path, and ``use_pallas=True`` raising under autograd;
+   (d) a one-rank NCCL group: ``moe_apply(impl="aam_shmap",
+   mode="train")`` against ``"aam"``, and ``make_compressed_dp_step``
+   against the dequantised single-rank mean.
 
-Phases 4, 6, 8, 9, 10, 7 and 11 (run in that order) are the main path: each
-zeroes the kernels' launch counters before it and reads them after, and
-fails if a kernel of its path was not launched (phase 6: the bucket
-count, and the fused kernel with 4 lanes; phases 8 and 10: both commit
-kernels and the bucket count; phase 9: a commit kernel and the bucket
-count; phase 7: the SSD kernel once per layer; phase 11: the bucket
-count once per MoE layer per forward of its ``generate()``).  Then one
+Phases 4, 6, 8, 9, 10, 7, 11 and 12 (run in that order) are the main
+path: each zeroes the kernels' launch counters before it and reads them
+after, and fails if a kernel of its path was not launched (phase 6: the
+bucket count, and the fused kernel with 4 lanes; phases 8 and 10: both
+commit kernels and the bucket count; phase 9: a commit kernel and the
+bucket count; phase 7: the SSD kernel once per layer; phase 11: the
+bucket count once per MoE layer per forward of its ``generate()``; phase
+12a: the bucket count exactly as remat implies).  Then one
 JSON
 line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
 device ms per launch, from launches back to back; ``call_ms`` is one
@@ -136,6 +160,7 @@ checkout's ``src/``; it imports nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -171,6 +196,7 @@ LANE_PPR_ITERS = 5                 # phase 8's lane PageRank iterations
 TENANTS = (8, 16)                  # phase 8's graph batch: count, scale
 SERVE_GRAPHS = 16                  # phase 10's graph budget of a wave
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor-core rate, dense
 MAMBA = "mamba2-780m"              # phase 7's model, at its published width
 PROMPT, NEW_TOKENS = (8, 2048), 32  # phase 7's batch x prompt, greedy tokens
 SSD_LS = (1, 7, 64, 100, 125, 128)  # phase 7's chunk lengths
@@ -186,6 +212,15 @@ QWEN_PROMPT, QWEN_NEW = (8, 2048), 32
 GEMMA = "gemma2-27b"               # phase 11c: a local and a global layer
 GEMMA_SEQ = 8192
 DECODE_K = 8                       # phase 11c: decode steps after S - k
+PHI_TRAIN_LAYERS = 2               # phase 12a: of 32; f32 weights, grads
+#                                    and AdamW's m, v take 45.8 GB
+TRAIN_BATCH = (4, 2048)            # phase 12a and b: batch x sequence
+PHI_TRAIN_STEPS, QWEN_TRAIN_STEPS = 6, 4
+ORACLE_TRAIN = (8, 64)             # phase 12c: smoke-width batch x sequence
+# phase 12c: the CPU tests' bounds (loss, gradients, an update from the
+# same gradients, parameters after several steps and after a resume)
+LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-6
+UPDATE_ATOL, PARAM_ATOL = 1e-6, 1e-5
 
 
 def say(*parts):
@@ -1812,11 +1847,12 @@ def ssd_bound(g, L, n, p, elem):
     """The least time of the SSD chunk on the card, in ms, and what sets
     it: each input read and the output written once (C, B [G, L, N], x, y
     [G, L, P] of ``elem`` bytes, a [G, L] f32) over the HBM rate, or the
-    causal products (G L(L+1)/2 (N + P) FMAs, 2 FLOPs each) over the f32
-    rate."""
+    causal products (G L(L+1)/2 (N + P) FMAs, 2 FLOPs each) over the peak
+    rate of the inputs' type (f32 without tensor cores, or bf16)."""
     byte_ms = g * ((2 * L * n + 2 * L * p) * elem + 4 * L) \
         / HBM_BYTES_PER_S * 1e3
-    flop_ms = g * L * (L + 1) / 2 * (n + p) * 2 / F32_FLOP_PER_S * 1e3
+    rate = F32_FLOP_PER_S if elem == 4 else BF16_FLOP_PER_S
+    flop_ms = g * L * (L + 1) / 2 * (n + p) * 2 / rate * 1e3
     return max(byte_ms, flop_ms), ("bytes" if byte_ms >= flop_ms
                                    else "operations"), byte_ms, flop_ms
 
@@ -1990,9 +2026,9 @@ def phase_mamba2(device, max_err):
     ssd_check(ssd_chunk_kernel(*bf16_args), ssd_chunk_ref(*bf16_args),
               "ssd_chunk/layer 0/bf16")
     ms_bf16 = device_ms(lambda: ssd_chunk_kernel(*bf16_args))
-    bound_bf16 = ssd_bound(g, L, n, p, 2)[0]
+    bound_bf16, by_bf16, _, _ = ssd_bound(g, L, n, p, 2)
     say(f"phase 7: ssd_chunk on layer 0's inputs cast to bf16: kernel device "
-        f"{ms_bf16:.4f} ms, bound {bound_bf16:.4f} ms by bytes")
+        f"{ms_bf16:.4f} ms, bound {bound_bf16:.4f} ms by {by_bf16}")
     del bf16_args
     say("phase 7: library_ms for ssd_chunk is null: no one PyTorch call "
         "computes the masked, decayed C B^T x of a chunk")
@@ -2408,6 +2444,404 @@ def phase_lm_families(device):
     return launches
 
 
+def train_numbers(label, name, device, *, steps, microbatches, **cut):
+    """Phase 12a/b: ``steps`` train steps of ``name`` (bf16 compute, f32
+    weights drawn on the card, ``remat="full"``, AdamW at the reference's
+    defaults) on ``TokenStream(seed=0)`` batches made before the clock
+    starts.  The bucket-count counter is zeroed before the run and read
+    after.  Returns a dict."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.runtime.fault_tolerance import device_get
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (clip_by_global_norm, grads_fn,
+                                              init_train_state,
+                                              make_train_step)
+    b, s = TRAIN_BATCH
+    cfg = dataclasses.replace(ARCHS[name], **cut)
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("train", s, b, "train"),
+                     compute_dtype="bfloat16", remat="full",
+                     microbatches=microbatches)
+    t0 = time.perf_counter()
+    model, params, opt_state = init_train_state(cfg, rcfg, seed=SEED,
+                                                device=device)
+    step_fn = make_train_step(cfg, rcfg, model)
+    stream = TokenStream(cfg, rcfg.shape, seed=0)
+    batches = [stream.tensors(i, device=device) for i in range(steps)]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    state_gb = n_params * 16 / 1e9
+    say(f"phase 12{label}: {name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params} params; f32 weights, grads, AdamW m and "
+        f"v {state_gb:.1f} GB; set-up and {steps} batches in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    bucket_count_kernel.launches = 0
+    ms, rows = [], []
+    for i, batch in enumerate(batches):
+        (params, opt_state, metrics), sec = timed(
+            lambda: step_fn(params, opt_state, i, batch))
+        ms.append(sec * 1e3)
+        rows.append(device_get(metrics))
+    launches = bucket_count_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(ms[1:])
+    # one more step on the last batch, its three parts timed apart
+    opt = make_optimizer(rcfg)
+    grads, sec_g = timed(lambda: grads_fn(cfg, rcfg, model, batches[-1])[0])
+    (grads, _), sec_c = timed(lambda: clip_by_global_norm(grads,
+                                                          rcfg.grad_clip))
+    _, sec_u = timed(lambda: opt.update(grads, opt_state, params, steps))
+    del grads
+    for i, (t, m) in enumerate(zip(ms, rows)):
+        say(f"phase 12{label}: step {i + 1}: {t:.1f} ms, loss "
+            f"{m['loss']:.4f}, ce {m['ce']:.4f}, grad norm "
+            f"{m['grad_norm']:.4f}, moe_dropped {m['moe_dropped']:g}, "
+            f"moe_aux {m['moe_aux']:.4f}")
+    moe_layers = sum(sp.mlp == "moe" for sp in cfg.full_pattern) \
+        * cfg.num_blocks
+    expected = 2 * moe_layers * microbatches * steps
+    say(f"phase 12{label}: {b} x {s} tokens, microbatches {microbatches}: "
+        f"{step_ms:.1f} ms a step (median of steps 2-{steps}), "
+        f"{b * s / step_ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; "
+        f"bucket_count launches {launches} (remat full: 2 x {moe_layers} "
+        f"MoE layers x {microbatches} x {steps} steps = {expected}); a "
+        f"step's parts: loss and gradients (forward, recompute, backward) "
+        f"{sec_g * 1e3:.1f} ms, clip {sec_c * 1e3:.1f} ms, AdamW "
+        f"{sec_u * 1e3:.1f} ms")
+    if not all(math.isfinite(m[k]) for m in rows for k in ("loss",
+                                                            "grad_norm")):
+        raise AssertionError(f"phase 12{label}: a loss or grad norm is not "
+                             f"finite")
+    if launches != expected:
+        raise AssertionError(f"phase 12{label}: bucket_count launched "
+                             f"{launches} times, remat implies {expected}")
+    return dict(step_ms=step_ms, tokens_s=b * s / step_ms * 1e3, peak=peak,
+                launches=launches)
+
+
+def _smoke_cfg(name, **run):
+    """(config, f32 run config) of smoke ``name`` on phase 12c's batch."""
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig, smoke_model
+    b, s = ORACLE_TRAIN
+    cfg = smoke_model(ARCHS[name])
+    return cfg, RunConfig(model=cfg, shape=ShapeConfig("t", s, b, "train"),
+                          compute_dtype="float32",
+                          **dict(dict(remat="full"), **run))
+
+
+def _smoke_train(name, device, steps, *, model=None, **run):
+    """``steps`` f32 train steps of smoke ``name`` on ``device`` from the
+    seed's weights (or ``model``'s).  Returns (model, params, losses)."""
+    import copy
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    cfg, rcfg = _smoke_cfg(name, **run)
+    model = copy.deepcopy(model or M.init(cfg, SEED, device="cpu")) \
+        .to(device)
+    params = dict(model.named_parameters())
+    opt_state = make_optimizer(rcfg).init(params)
+    step_fn = make_train_step(cfg, rcfg, model)
+    stream = TokenStream(cfg, rcfg.shape, seed=0)
+    losses = []
+    for i in range(steps):
+        params, opt_state, m = step_fn(params, opt_state, i,
+                                       stream.tensors(i, device=device))
+        losses.append(m["loss"].item())
+    return model, params, losses
+
+
+def _card_vs_cpu_step(base, device):
+    """The first step of smoke phi3.5 from ``base``'s weights: the
+    largest gradient error as a share of the CPU tests' tolerance (rtol
+    1e-4, atol 1e-6; at most 1 passes), the largest parameter error after
+    one AdamW update on each device from the CPU's gradients, and the
+    CPU's gradients."""
+    import copy
+    import torch
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import grads_fn
+    cfg, rcfg = _smoke_cfg(PHI)
+    batch = TokenStream(cfg, rcfg.shape, seed=0).batch(0)
+    models, grads = {}, {}
+    for dev in ("cpu", device):
+        models[dev] = copy.deepcopy(base).to(dev)
+        grads[dev] = grads_fn(cfg, rcfg, models[dev], {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})[0]
+    share = max(float(((grads[device][k].cpu() - g).abs()
+                       / (GRAD_ATOL + GRAD_RTOL * g.abs())).max())
+                for k, g in grads["cpu"].items())
+    opt = make_optimizer(rcfg)
+    for dev, m in models.items():
+        p = dict(m.named_parameters())
+        opt.update({k: g.to(dev) for k, g in grads["cpu"].items()},
+                   opt.init(p), p, 0)
+    params = {dev: dict(m.named_parameters()) for dev, m in models.items()}
+    update_err = max(float((params[device][k].detach().cpu() - v.detach())
+                           .abs().max()) for k, v in params["cpu"].items())
+    return share, update_err, grads["cpu"]
+
+
+def phase12_oracles(device):
+    """Phase 12c: f32 (no TF32) oracles at smoke width."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.core.coalescing import plan_buckets_sorted
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.moe import moe_layer
+    from repro_torch.runtime.fault_tolerance import TrainSupervisor
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    cpu = torch.device("cpu")
+    base = M.init(_smoke_cfg(PHI)[0], SEED, device="cpu")
+    _, p_cpu, l_cpu = _smoke_train(PHI, cpu, 3, model=base)
+    sink = []
+    undo = _recording(moe_layer, "plan_buckets_sorted", sink)
+    bucket_count_kernel.launches = 0
+    try:
+        _, p_gpu, l_gpu = _smoke_train(PHI, device, 3, model=base)
+    finally:
+        undo()
+    launches = bucket_count_kernel.launches
+    # the same 3 steps on the card again: bit for bit, or not
+    _, p_again, l_again = _smoke_train(PHI, device, 3, model=base)
+    repeat = l_again == l_gpu and all(torch.equal(p_again[k], v)
+                                      for k, v in p_gpu.items())
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    diff = {k: (p_gpu[k].detach().cpu() - v.detach()).abs()
+            for k, v in p_cpu.items()}
+    worst = max(diff, key=lambda k: float(diff[k].max()))
+    param_err = float(diff[worst].max())
+    at = int(diff[worst].argmax())
+    grad_share, update_err, g_cpu = _card_vs_cpu_step(base, device)
+    # every plan of the run (forward and remat recompute, each layer and
+    # step) again with count_backend="jnp", torch.bincount's histogram
+    same = len(sink) == launches > 0
+    for args, (plan, order) in sink:
+        plan_j, order_j = plan_buckets_sorted(*args, count_backend="jnp")
+        same &= torch.equal(order, order_j) and all(
+            torch.equal(getattr(plan, f), getattr(plan_j, f)) for f in (
+                "owner", "position", "counts", "kept", "dropped"))
+    say(f"phase 12c: smoke {PHI}, f32, remat full, {ORACLE_TRAIN[0]} x "
+        f"{ORACLE_TRAIN[1]}, the card vs the CPU from the same weights: 3 "
+        f"steps' losses {', '.join(f'{x:.6f}' for x in l_gpu)}, relative "
+        f"error {loss_err:.3g} (bound {LOSS_RTOL:g}); the first step's "
+        f"gradients at {grad_share:.3g} of rtol {GRAD_RTOL:g} / atol "
+        f"{GRAD_ATOL:g} (bound 1); one AdamW update from the same "
+        f"gradients {update_err:.3g} (bound {UPDATE_ATOL:g}); parameters "
+        f"after 3 steps {param_err:.3g} (bound {PARAM_ATOL:g}), largest at "
+        f"{worst}[{at}] (the CPU's first-step gradient there "
+        f"{float(g_cpu[worst].reshape(-1)[at]):.3g}); a second run on the "
+        f"card equal bit for bit: {repeat}; the kernel's {len(sink)} plans "
+        f"({launches} launches) equal count_backend=\"jnp\"'s "
+        f"(torch.bincount): {same}")
+    if not (loss_err <= LOSS_RTOL and grad_share <= 1
+            and update_err <= UPDATE_ATOL and param_err <= PARAM_ATOL
+            and same):
+        raise AssertionError("phase 12c: card vs CPU or kernel vs bincount")
+
+    # TrainSupervisor: a fault at step 6 against an uninterrupted run
+    _, p_full, _ = _smoke_train(PHI, device, 8, model=base)
+    ckpt_dir = ROOT / "build" / "phase12_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cfg, rcfg = _smoke_cfg(PHI)
+    model, params, opt_state = init_train_state(cfg, rcfg, device=device)
+    model.load_state_dict(base.state_dict())
+    step_fn = make_train_step(cfg, rcfg, model)
+    stream = TokenStream(cfg, rcfg.shape, seed=0)
+    fired = []
+
+    def injector(step):
+        if step == 6 and not fired:
+            fired.append(step)
+            raise RuntimeError("injected fault")
+
+    def run_step(state, step, batch):
+        p, o, m = step_fn(*state, step, batch)
+        return (p, o), m
+    sup = TrainSupervisor(Checkpointer(ckpt_dir), save_every=4)
+    t0 = time.perf_counter()
+    (params, _), final, _ = sup.run(
+        (params, opt_state), run_step,
+        lambda i: stream.tensors(i, device=device), start_step=0,
+        num_steps=8, fail_injector=injector, log_every=4,
+        log=lambda *a: None)
+    sup_s = time.perf_counter() - t0
+    sup_err = max(float((params[k] - p_full[k]).detach().abs().max())
+                  for k in p_full)
+    say(f"phase 12c: TrainSupervisor, 8 steps, save_every=4, a fault at "
+        f"step 6: final step {final}, restarts {sup.restarts}, parameters "
+        f"vs the uninterrupted run {sup_err:.3g} (bound {PARAM_ATOL:g}), "
+        f"{sup_s:.1f} s")
+    if not (final == 8 and sup.restarts == 1 and sup_err <= PARAM_ATOL):
+        raise AssertionError("phase 12c: the supervisor's replay")
+
+    # the launcher, twice on one --ckpt-dir
+    ckpt_dir = ROOT / "build" / "phase12_launch"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["--smoke", "--batch", "2", "--seq", "64", "--save-every", "2",
+            "--ckpt-dir", str(ckpt_dir), "--device", str(device)]
+    first = launch_train.main(argv + ["--steps", "4"])
+    second = launch_train.main(argv + ["--steps", "6"])
+    say(f"phase 12c: launch.train --smoke on the card: the first run "
+        f"{first['start']} -> {first['final']}, the second resumed at "
+        f"{second['start']} -> {second['final']}, final loss "
+        f"{second['log'][-1][1]['loss']:.4f}")
+    if not ((first["start"], first["final"]) == (0, 4) and
+            (second["start"], second["final"]) == (4, 6)):
+        raise AssertionError("phase 12c: the launcher did not resume")
+
+    # Mamba2 trains on the plain SSD path; the kernel has no backward
+    _, _, l_ssm = _smoke_train(MAMBA, device, 3)
+    try:
+        _smoke_train(MAMBA, device, 1, use_pallas=True)
+        raised = "nothing"
+    except NotImplementedError as e:
+        raised = str(e)
+    say(f"phase 12c: smoke {MAMBA} on the plain SSD path, 3 steps: losses "
+        f"{', '.join(f'{x:.4f}' for x in l_ssm)}; use_pallas=True under "
+        f"autograd raises: {raised!r}")
+    if not (all(map(math.isfinite, l_ssm)) and "item 9" in raised):
+        raise AssertionError("phase 12c: Mamba2 training")
+
+
+def phase12_nccl(device):
+    """Phase 12d: a one-rank NCCL group on a localhost store: the
+    expert-parallel MoE against the aam path, and a compressed DP step
+    against the dequantised single-rank mean.  Returns the bucket-count
+    launches of the expert-parallel call."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig, smoke_model
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.models import model as M
+    from repro_torch.moe import moe_layer, shmap_moe
+    from repro_torch.train import grad_compression as GC
+    from repro_torch.train.optimizer import make_optimizer
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = shmap_moe.make_expert_mesh(1, 1, device=device)
+        cfg = smoke_model(ARCHS[PHI])
+        p = moe_layer.MoE(cfg, torch.Generator(device=device).manual_seed(
+            SEED))
+        gen = torch.Generator(device=device).manual_seed(SEED + 1)
+        x = torch.randn(512, cfg.d_model, generator=gen, device=device)
+        with torch.no_grad():
+            y0, m0 = moe_layer.moe_apply(cfg, p, x, impl="aam", mode="train")
+        shmap_moe.place_experts(p, mesh)
+        bucket_count_kernel.launches = 0
+        y1, m1 = moe_layer.moe_apply(cfg, p, x, impl="aam_shmap",
+                                     mode="train")
+        launches = bucket_count_kernel.launches
+        (y1.square().sum() + m1["moe_aux"]).backward()
+        y1, aux1 = y1.detach(), m1["moe_aux"].detach()
+        err = float((y1 - y0).abs().max())
+        before = {n: w.grad.clone() for n, w in p.named_parameters()}
+        reduced = shmap_moe.reduce_expert_grads(
+            p, mesh, {n: w.grad for n, w in p.named_parameters()})
+        grads = all(bool(torch.isfinite(g).all()) and torch.equal(
+            g, before[n]) for n, g in reduced.items())
+        say(f"phase 12d: NCCL {dist.get_backend()}, 1 rank: "
+            f"moe_apply(aam_shmap, train) vs aam on {x.shape[0]} tokens: "
+            f"{err:.3g} (bound 1e-6), moe_dropped {int(m1['moe_dropped'])} "
+            f"vs {int(m0['moe_dropped'])}, moe_aux {float(aux1):.6f}"
+            f" vs {float(m0['moe_aux']):.6f}; finite gradients, unchanged "
+            f"by reduce_expert_grads on one rank: {grads}; "
+            f"bucket_count launches {launches}")
+        if not (err <= 1e-6 and torch.equal(m0["moe_dropped"],
+                                            m1["moe_dropped"])
+                and abs(float(aux1 - m0["moe_aux"])) <= 1e-6
+                and grads and launches == 1):
+            raise AssertionError("phase 12d: aam_shmap vs aam")
+
+        qcfg = smoke_model(ARCHS[QWEN])
+        rcfg = RunConfig(model=qcfg, shape=ShapeConfig("t", 64, 4, "train"),
+                         compute_dtype="float32", remat="none")
+        model = M.init(qcfg, SEED, device=device)
+        twin = M.init(qcfg, SEED, device=device)
+        opt = make_optimizer(rcfg)
+        batch = TokenStream(qcfg, rcfg.shape, seed=0).tensors(0,
+                                                              device=device)
+        params = dict(model.named_parameters())
+        step = GC.make_compressed_dp_step(
+            lambda p_, b_: M.loss_fn(qcfg, rcfg, model, b_), opt,
+            dist.group.WORLD)
+        sink = []
+        undo = _recording(GC, "compressed_psum_mean", sink)
+        try:
+            params, _, ef2, loss = step(params, opt.init(params),
+                                        GC.init_error_feedback(params), 0,
+                                        batch)
+        finally:
+            undo()
+        # the expectation: the step's own gradients quantised and
+        # dequantised on this rank, and one update of a twin from them
+        (grads, ef, _), (mean, new_ef) = sink[0]
+        deq_ok = True
+        for k, gk in grads.items():
+            q, scale, err = GC._quantize(gk, ef[k])
+            deq_ok &= torch.equal(mean[k], q.float() * scale) and \
+                torch.equal(new_ef[k], err) and torch.equal(ef2[k], err)
+        tp = dict(twin.named_parameters())
+        tp, _ = opt.update(mean, opt.init(tp), tp, 0)
+        perr = max(float((params[k] - tp[k]).detach().abs().max())
+                   for k in tp)
+        say(f"phase 12d: make_compressed_dp_step on the NCCL group "
+            f"(all_gather of int8 payloads and f32 scales): loss "
+            f"{loss.item():.4f}; the mean equals the dequantised int8 "
+            f"gradients and the error feedback their residual: {deq_ok}; "
+            f"parameters vs one update from them {perr:.3g} (bound 1e-6)")
+        if not (deq_ok and perr <= 1e-6):
+            raise AssertionError("phase 12d: compressed DP step")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def phase_training(device):
+    """Phase 12.  Returns the bucket-count launches of its main path
+    (phi3.5's train steps)."""
+    import torch
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("f32 matmuls must not run in TF32 here")
+    phi = train_numbers("a", PHI, device, steps=PHI_TRAIN_STEPS,
+                        microbatches=1, num_layers=PHI_TRAIN_LAYERS)
+    torch.cuda.empty_cache()
+    qwen = train_numbers("b", QWEN, device, steps=QWEN_TRAIN_STEPS,
+                         microbatches=2)
+    torch.cuda.empty_cache()
+    phase12_oracles(device)
+    phase12_nccl(device)
+    say(f"phase 12: done in {time.perf_counter() - t0:.1f} s; phi3.5 "
+        f"({PHI_TRAIN_LAYERS} layers) {phi['step_ms']:.1f} ms a step, "
+        f"{phi['tokens_s']:.0f} tokens/s, peak {phi['peak']:.2f} GiB; "
+        f"qwen2-1.5b {qwen['step_ms']:.1f} ms a step, "
+        f"{qwen['tokens_s']:.0f} tokens/s, peak {qwen['peak']:.2f} GiB; "
+        f"bucket_count launches {phi['launches']}")
+    return phi["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2477,11 +2911,13 @@ def main() -> int:
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
     torch.cuda.empty_cache()
     lm_launches = phase_lm_families(device)
+    torch.cuda.empty_cache()
+    train_launches = phase_training(device)
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches)) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
-    launches["bucket_count"] += lm_launches
+    launches["bucket_count"] += lm_launches + train_launches
 
     kernels = [dict(name=name, route="cuda", source=src_path,
                     replaces=replaces, launches=launches[name],

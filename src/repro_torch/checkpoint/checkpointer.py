@@ -100,9 +100,12 @@ def _leaf_name(path) -> str:
 
 
 def _to_numpy(x) -> np.ndarray:
+    """A host copy of ``x``: a background save writes it while the caller
+    goes on, and may update its tensors in place (a CPU tensor's
+    ``.numpy()`` would share their memory)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x)
 
 
 def _named_leaves(tree) -> list:

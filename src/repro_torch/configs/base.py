@@ -183,12 +183,20 @@ SHAPES: dict[str, ShapeConfig] = {
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The reference's run configuration, field for field.  The port's
-    serving path reads ``compute_dtype``, ``use_pallas``, ``moe_impl``,
+    """The reference's run configuration, field for field.
+
+    Serving reads ``compute_dtype``, ``use_pallas``, ``moe_impl``,
     ``attn_causal_skip`` and ``seq_parallel`` (which keeps q whole in the
-    chunked attention, as the reference does; the port runs on one card,
-    so nothing is sharded); the mesh, optimizer and remat fields wait for
-    training."""
+    chunked attention, as the reference does).  Training also reads
+    ``optimizer``, ``learning_rate``, ``weight_decay``, ``grad_clip``,
+    ``remat``, ``microbatches``, ``param_dtype`` (the weights of
+    ``train_step.init_train_state``) and ``model``.  ``grad_compression``
+    is read by neither package: the compressed data-parallel step is
+    built with ``train.grad_compression.make_compressed_dp_step``.
+    ``shard_grads`` (``constrain_like_params``, a no-op), ``multi_pod``
+    and ``serve_tp`` have no effect: the port runs on one card and shards
+    nothing.  ``seed`` is the reference's; the launchers take
+    ``--seed``."""
     model: ModelConfig
     shape: ShapeConfig
     multi_pod: bool = False

@@ -1,5 +1,5 @@
-"""Carry graphs, messages, commit state, bucket plans and LM weights across
-from host arrays.
+"""Carry graphs, messages, commit state, bucket plans, LM weights, gradients
+and optimizer state across from host arrays.
 
 The reference package's arrays, taken to numpy (``np.asarray(g.src)``,
 ...), become the port's objects on a chosen device, so both packages can
@@ -110,7 +110,8 @@ def to_lm_params(cfg, params, *, device="cuda") -> dict[str, torch.Tensor]:
                                  f"blocks, {cfg.name} has {cfg.num_blocks}")
             for j in range(cfg.num_blocks):
                 out[f"layers.{j * n + i}.{name}"] = put(a[j])
-    out["final_norm"] = put(params["final_norm"])
+    out.update((k, put(a)) for k, a in _flatten(
+        {"final_norm": params["final_norm"]}))
     return out
 
 
@@ -126,7 +127,8 @@ def to_encdec_params(cfg, params, *,
     def put(a):
         return torch.as_tensor(np.array(a), device=device)
     out = {f"embed.{k}": put(a) for k, a in _flatten(params["embed"])}
-    out["enc_pos"] = put(params["enc_pos"])
+    out.update((k, put(a)) for k, a in _flatten(
+        {k: params[k] for k in ("enc_pos", "enc_final_norm", "final_norm")}))
     for stack, n in (("encoder", cfg.encoder_layers),
                      ("decoder", cfg.num_layers)):
         for name, a in _flatten(params[stack]):
@@ -135,6 +137,51 @@ def to_encdec_params(cfg, params, *,
                                  f"layers, {cfg.name} has {n}")
             for l in range(n):
                 out[f"{stack}.{l}.{name}"] = put(a[l])
-    out["enc_final_norm"] = put(params["enc_final_norm"])
-    out["final_norm"] = put(params["final_norm"])
+    return out
+
+
+def to_params(cfg, tree, *, device="cuda") -> dict[str, torch.Tensor]:
+    """:func:`to_encdec_params` for an enc-dec config, else
+    :func:`to_lm_params`: any tree shaped like the reference's params (the
+    params, a gradient tree, AdamW's ``m`` or ``v``)."""
+    conv = to_encdec_params if cfg.encoder_layers else to_lm_params
+    return conv(cfg, tree, device=device)
+
+
+def _expand_shared_vc(tree, n: int):
+    """An Adafactor state subtree of stacked leaves with every shared
+    ``vc`` (a stacked vector's column factor: its ``vr`` is 1-D)
+    broadcast over the ``n`` stacked layers."""
+    if isinstance(tree, dict) and "vr" in tree:
+        vr, vc = np.asarray(tree["vr"]), np.asarray(tree["vc"])
+        if vr.ndim < 2:
+            vc = np.broadcast_to(vc, (n,) + vc.shape)
+        return {"vr": vr, "vc": vc}
+    if isinstance(tree, dict) and "v" in tree:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _expand_shared_vc(v, n) for k, v in tree.items()}
+    return [_expand_shared_vc(v, n) for v in tree]
+
+
+def to_opt_state(cfg, state, *, device="cuda") -> dict:
+    """The port's optimizer state from the reference's
+    (``repro.train.optimizer``), leaves as host arrays: AdamW's ``{"m",
+    "v"}`` map per layer as the params do; Adafactor's per-leaf ``{"vr",
+    "vc"}`` or ``{"v"}`` become ``{name: {"vr", "vc"}}`` or ``{name:
+    {"v"}}``, each layer taking its slice of a stacked factor and every
+    layer of a stacked vector the shared ``vc``."""
+    if set(state) == {"m", "v"}:
+        return {s: to_params(cfg, state[s], device=device) for s in state}
+    state = dict(state)
+    if cfg.encoder_layers:
+        for stack, n in (("encoder", cfg.encoder_layers),
+                         ("decoder", cfg.num_layers)):
+            state[stack] = _expand_shared_vc(state[stack], n)
+    else:
+        state["blocks"] = _expand_shared_vc(state["blocks"], cfg.num_blocks)
+    out: dict[str, dict] = {}
+    for name, t in to_params(cfg, state, device=device).items():
+        param, _, leaf = name.rpartition(".")
+        out.setdefault(param, {})[leaf] = t
     return out

@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, ones, rmsnorm, rope, scalar
+from repro_torch.models.layers import (dense_init, gen_device, ones, rmsnorm,
+                                      rope, scalar)
 
 NEG_INF = -1e30
 
@@ -40,7 +41,7 @@ class Attention(nn.Module):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim
-        dev = generator.device
+        dev = gen_device(generator)
         self.wq = dense_init((d, h, hd), generator, dtype=dtype)
         self.wk = dense_init((d, kv, hd), generator, dtype=dtype)
         self.wv = dense_init((d, kv, hd), generator, dtype=dtype)

@@ -8,7 +8,8 @@ the decoder is causal self-attention, cross-attention and an MLP per
 layer, with learned positions.  The cross K/V are computed once at
 prefill and kept in the cache.  The cache is one dict of tensors stacked
 over the decoder layers: ``k``, ``v`` (bf16), ``pos``, ``cross_k``,
-``cross_v`` (bf16).
+``cross_v`` (bf16).  Under autograd every encoder and decoder layer runs
+under :func:`repro_torch.models.lm.remat`.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _embed_in, _merge_metrics
+from repro_torch.models.lm import _embed_in, _merge_metrics, remat
 
 
 class EncLayer(nn.Module):
@@ -68,19 +69,42 @@ def encode(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, frames):
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None].expand(b, s)
-    call = attn.AttnCall(causal=False, window=None, use_rope=False)
+    layer_fn = remat(_enc_layer, rcfg)
     for p in model.encoder:
-        h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
-        y, _ = attn.attn_apply(cfg, p.mixer, h, positions, call)
-        x = x + y
-        h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
-        x = x + L.mlp_apply(cfg, p.mlp, h)
+        x = layer_fn(cfg, p, x, positions)
     return L.rmsnorm(x, model.enc_final_norm, cfg.norm_eps)
+
+
+def _enc_layer(cfg: ModelConfig, p: EncLayer, x, positions):
+    call = attn.AttnCall(causal=False, window=None, use_rope=False)
+    h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
+    y, _ = attn.attn_apply(cfg, p.mixer, h, positions, call)
+    x = x + y
+    h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
+    return x + L.mlp_apply(cfg, p.mlp, h)
 
 
 def _cross_kv(cfg: ModelConfig, p: DecLayer, enc):
     k, v = attn.project_kv(cfg, p.cross, enc, None, use_rope=False)
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def _dec_layer(cfg: ModelConfig, p: DecLayer, x, positions, enc, mode: str):
+    """One decoder layer; returns (x, its prefill cache entry or None)."""
+    call = attn.AttnCall(causal=True, window=None, use_rope=False)
+    h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
+    y, (k, v) = attn.attn_apply(cfg, p.mixer, h, positions, call)
+    x = x + y
+    ck, cv = _cross_kv(cfg, p, enc)
+    h = L.rmsnorm(x, p.norm_cross, cfg.norm_eps)
+    x = x + attn.cross_attn_apply(cfg, p.cross, h, ck, cv)
+    h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
+    x = x + L.mlp_apply(cfg, p.mlp, h)
+    if mode != "prefill":
+        return x, None
+    return x, {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
+               "pos": positions[0].to(torch.int32), "cross_k": ck,
+               "cross_v": cv}
 
 
 def forward(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, tokens,
@@ -89,22 +113,11 @@ def forward(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, tokens,
     cache or None, metrics); the cache only with ``mode="prefill"``."""
     enc = encode(cfg, rcfg, model, frames.to(model.enc_pos.device))
     x, positions = _embed_in(cfg, rcfg, model, tokens)
-    call = attn.AttnCall(causal=True, window=None, use_rope=False)
+    layer_fn = remat(_dec_layer, rcfg)
     entries = []
     for p in model.decoder:
-        h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
-        y, (k, v) = attn.attn_apply(cfg, p.mixer, h, positions, call)
-        x = x + y
-        ck, cv = _cross_kv(cfg, p, enc)
-        h = L.rmsnorm(x, p.norm_cross, cfg.norm_eps)
-        x = x + attn.cross_attn_apply(cfg, p.cross, h, ck, cv)
-        h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
-        x = x + L.mlp_apply(cfg, p.mlp, h)
-        if mode == "prefill":
-            entries.append({"k": k.to(torch.bfloat16),
-                            "v": v.to(torch.bfloat16),
-                            "pos": positions[0].to(torch.int32),
-                            "cross_k": ck, "cross_v": cv})
+        x, entry = layer_fn(cfg, p, x, positions, enc, mode)
+        entries.append(entry)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
     logits = L.lm_logits(cfg, model.embed, x)
     cache = ({k: torch.stack([e[k] for e in entries]) for k in entries[0]}

@@ -17,32 +17,35 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item 9, training)")
+def gen_device(generator: torch.Generator | None) -> torch.device:
+    """The device weights are drawn on: the generator's, or ``meta`` (shapes
+    and dtypes only, no storage) when ``generator`` is None."""
+    return torch.device("meta") if generator is None else generator.device
 
 
-def dense_init(shape, generator: torch.Generator, *, scale=None,
+def dense_init(shape, generator: torch.Generator | None, *, scale=None,
                dtype=torch.float32) -> nn.Parameter:
     """Normal weights scaled by ``fan_in ** -0.5`` (or ``scale``), drawn
     on the generator's device.  ``fan_in`` is ``shape[0]``, as in the
     reference (for expert weights [E, d, ff] that is E)."""
     fan_in = shape[0] if len(shape) > 1 else 1
     scale = fan_in ** -0.5 if scale is None else scale
-    w = torch.randn(shape, generator=generator, device=generator.device,
-                    dtype=torch.float32) * scale
+    w = torch.randn(shape, generator=generator,
+                    device=gen_device(generator), dtype=torch.float32) * scale
     return nn.Parameter(w.to(dtype))
 
 
-def ones(n: int, generator: torch.Generator, dtype) -> nn.Parameter:
+def ones(n: int, generator: torch.Generator | None, dtype) -> nn.Parameter:
     """A norm weight of ones on the generator's device."""
-    return nn.Parameter(torch.ones(n, device=generator.device, dtype=dtype))
+    return nn.Parameter(torch.ones(n, device=gen_device(generator),
+                                   dtype=dtype))
 
 
 def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` rounded to ``like``'s dtype, as ``jnp.asarray(value,
-    dtype)`` rounds it (in bf16, sqrt(4608) becomes 68.0)."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    dtype)`` rounds it (in bf16, sqrt(4608) becomes 68.0).  A fill on the
+    device: a copy from the host would wait for the card's queue."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 # ---------------------------------------------------------------------------

@@ -12,11 +12,24 @@ layout: a list over pattern positions ``i``, each a dict of tensors
 stacked over blocks ``j``, so ``cache[i][k][j]`` belongs to layer
 ``j * len(pattern) + i``.  The reference's sharding constraints have no
 counterpart: the port runs on one card.
+
+Under autograd, :func:`remat` wraps each layer as the reference's
+``_remat`` wraps its scanned block: ``"full"`` keeps only the layer's
+inputs and recomputes the rest in the backward, ``"dots"`` also keeps the
+outputs of matmuls without batch dims (``aten.mm``/``addmm``, as
+``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.  The
+recomputation runs the layer's Python again, so an MoE layer plans its
+buckets (and launches the bucket-count kernel) a second time; the plan
+is the same, since the sort is stable and the counts exact.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, RunConfig
 from repro_torch.models import attention as attn
@@ -193,18 +206,39 @@ def _merge_metrics(mets: list[dict], device) -> dict:
     return out
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, rcfg: RunConfig):
+    """``fn`` under ``rcfg.remat`` (``"none"``, ``"full"`` or ``"dots"``);
+    without autograd ``fn`` itself, since nothing is saved then."""
+    if rcfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={rcfg.remat!r} not in none/full/dots")
+    if rcfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    extra = ({} if rcfg.remat == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)})
+    return functools.partial(checkpoint, fn, use_reentrant=False, **extra)
+
+
 def forward(cfg: ModelConfig, rcfg: RunConfig, model: LM, tokens,
             extra_embeds=None, mode: str = "train"):
     """tokens: [B, S] -> (logits [B, S', V], cache or None, metrics).
 
     S' = S plus the ``extra_embeds`` prefix.  ``mode="prefill"`` also
-    returns the stacked KV/SSM cache."""
+    returns the stacked KV/SSM cache.  Metrics stay on the device."""
     x, positions = _embed_in(cfg, rcfg, model, tokens, extra_embeds)
     pattern = cfg.full_pattern
+    layer_fn = remat(apply_layer, rcfg)
     entries, mets = [], []
     for l, layer in enumerate(model.layers):
-        x, entry, met = apply_layer(cfg, rcfg, pattern[l % len(pattern)],
-                                    layer, x, positions, mode=mode)
+        x, entry, met = layer_fn(cfg, rcfg, pattern[l % len(pattern)],
+                                 layer, x, positions, mode=mode)
         entries.append(entry)
         mets.append(met)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps,

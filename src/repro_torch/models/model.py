@@ -1,18 +1,21 @@
-"""Model API: init, prefill, decode across every family.  Port of
+"""Model API: init, loss, prefill, decode across every family.  Port of
 ``repro.models.model``: the encoder-decoder family (whisper) goes to
 :mod:`repro_torch.models.encdec`, every other one to
-:mod:`repro_torch.models.lm`.
+:mod:`repro_torch.models.lm`.  ``loss_fn`` runs under autograd; prefill and
+decode run without it.
 
-``loss_fn``, ``input_specs``, ``cache_specs`` and ``param_specs`` wait for
-training (ROADMAP Queue 1 item 9).  Prefill and decode run without
-autograd.
+``input_specs``, ``cache_specs`` and ``param_specs`` are the dry-run
+contract: ``device="meta"`` tensors of the reference's shapes and dtypes
+(no storage).  ``param_specs`` is the port's state dict, one entry per
+layer where the reference stacks a pattern position over its blocks.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import encdec, lm
 
 
@@ -39,6 +42,29 @@ def _forward(cfg: ModelConfig, rcfg: RunConfig, model, batch, mode: str):
                       extra_embeds=batch.get("patch_embeds"), mode=mode)
 
 
+def loss_fn(cfg: ModelConfig, rcfg: RunConfig, model, batch):
+    """Next-token cross entropy (labels < 0 are ignored; the vlm prefix is
+    padded with -1 labels) on f32 log-probabilities, plus
+    ``router_aux_weight · moe_aux / num_layers``.  Returns (loss, metrics
+    with ``"ce"``), all on the device."""
+    logits, _, metrics = _forward(cfg, rcfg, model, batch, mode="train")
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:   # vlm prefix: pad with -1
+        labels = F.pad(labels, (logits.shape[1] - labels.shape[1], 0),
+                       value=-1)
+    valid = labels >= 0
+    labels_c = labels.clamp(0, cfg.padded_vocab - 1).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels_c[..., None])[..., 0]
+    denom = valid.sum().clamp_min(1)
+    ce = -torch.where(valid, ll, 0.0).sum() / denom
+    total = ce + cfg.router_aux_weight * metrics["moe_aux"] / max(
+        cfg.num_layers, 1)
+    metrics = dict(metrics)
+    metrics["ce"] = ce
+    return total, metrics
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, rcfg: RunConfig, model, batch):
     """batch: ``{"tokens": [B, S]}``, plus ``"frames"`` [B, Se, d] for
@@ -62,3 +88,53 @@ def decode_step(cfg: ModelConfig, rcfg: RunConfig, model, cache, token,
     if is_encdec(cfg):
         return encdec.decode_step(cfg, rcfg, model, cache, token, pos)
     return lm.decode_step(cfg, rcfg, model, cache, token, pos)
+
+
+# ---------------------------------------------------------------------------
+# input_specs — the dry-run contract
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                compute_dtype=torch.bfloat16) -> dict[str, torch.Tensor]:
+    """Meta tensors for every model input of this (arch, shape) cell.
+
+    train/prefill: {"tokens", "labels"?, frontend stubs}
+    decode:        {"token", "pos"} (the cache comes from cache_specs())."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": spec((b, 1), i32), "pos": spec((), i32)}
+    batch: dict[str, torch.Tensor] = {}
+    if is_encdec(cfg):
+        batch["frames"] = spec((b, cfg.encoder_seq, cfg.d_model),
+                               compute_dtype)
+        batch["tokens"] = spec((b, s), i32)
+    elif cfg.frontend == "patch":
+        f = cfg.frontend_seq
+        batch["patch_embeds"] = spec((b, f, cfg.d_model), compute_dtype)
+        batch["tokens"] = spec((b, s - f), i32)
+    else:
+        batch["tokens"] = spec((b, s), i32)
+    if shape.kind == "train":
+        batch["labels"] = spec((b, s), i32)
+    return batch
+
+
+def cache_specs(cfg: ModelConfig, rcfg: RunConfig, shape: ShapeConfig):
+    """The KV/SSM cache of a decode cell, as meta tensors."""
+    return init_cache(cfg, rcfg, shape.global_batch, shape.seq_len,
+                      device="meta")
+
+
+def param_specs(cfg: ModelConfig,
+                param_dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The model's state dict as meta tensors: shapes and dtypes, nothing
+    allocated, at any size."""
+    model = (encdec.EncDec(cfg, None, dtype=param_dtype) if is_encdec(cfg)
+             else lm.LM(cfg, None, dtype=param_dtype))
+    return model.state_dict()

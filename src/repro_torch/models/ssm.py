@@ -24,7 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
-from repro_torch.models.layers import dense_init, rmsnorm
+from repro_torch.models.layers import dense_init, gen_device, rmsnorm
 
 
 class Mamba2Mixer(nn.Module):
@@ -38,7 +38,7 @@ class Mamba2Mixer(nn.Module):
         d, din = cfg.d_model, cfg.d_inner
         gst, nh, kk = cfg.ssm_groups * cfg.ssm_state, cfg.ssm_heads, \
             cfg.ssm_conv_kernel
-        dev = generator.device
+        dev = gen_device(generator)
 
         def uniform(lo, hi):
             return torch.empty(nh, device=dev).uniform_(lo, hi,
@@ -80,12 +80,14 @@ def _causal_conv(x, w, state=None):
 
 def _segsum_mask(a):
     """a: [..., L] log-decays -> M[..., t, s] = exp(sum_{s<u<=t} a_u) for
-    s <= t, else 0."""
+    s <= t, else 0.  The mask goes in before the exp: above the diagonal
+    ``diff`` is positive and can overflow to inf, and the backward of a
+    mask after the exp would multiply its zero gradient by that inf."""
     L = a.shape[-1]
     cs = torch.cumsum(a, dim=-1)
     diff = cs[..., :, None] - cs[..., None, :]
     tri = torch.ones(L, L, dtype=torch.bool, device=a.device).tril()
-    return torch.where(tri, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(tri, diff, float("-inf")))
 
 
 def _project(cfg: ModelConfig, p: Mamba2Mixer, x):

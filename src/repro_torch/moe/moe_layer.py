@@ -13,9 +13,15 @@ the expert MLP, combine = a weighted accumulate.  Two dispatch paths:
 
 Both drop over-capacity assignments with the same (arrival-order)
 priority, so they agree.  Outside ``"train"`` the capacity is dropless
-(C = T·k), so a stepwise decode reproduces the batched forward.  The
-train-time expert-parallel path (``impl="aam_shmap"`` in ``"train"``)
-waits for training.
+(C = T·k), so a stepwise decode reproduces the batched forward; in
+``"train"`` it is ⌈T·k·capacity_factor/E⌉ rounded up to 8, and what
+overflows is dropped.  The train-time expert-parallel path
+(``impl="aam_shmap"`` in ``"train"``) is
+:func:`repro_torch.moe.shmap_moe.moe_apply_shmap`.
+
+Every step is differentiable: gradients reach the router through the
+sorted top-k weights and ``aux_loss``, and the experts through the
+bucket scatter and the combine's gather.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coalescing import plan_buckets_sorted, scatter_to_buckets
-from repro_torch.models.layers import dense_init, gelu, not_ported
+from repro_torch.models.layers import dense_init, gelu
 
 
 class MoE(nn.Module):
@@ -57,15 +63,16 @@ def _route(cfg: ModelConfig, p: MoE, x):
     return w, e.to(torch.int32), probs
 
 
-def _expert_ffn(cfg: ModelConfig, p: MoE, xb):
-    """xb: [E, C, d] -> [E, C, d] through each expert's MLP."""
-    h = torch.bmm(xb, p.wi.to(xb.dtype))
+def _expert_ffn(cfg: ModelConfig, p: MoE, xb, experts=slice(None)):
+    """xb: [E', C, d] -> [E', C, d] through the MLPs of ``experts`` (all E
+    by default; the expert-parallel path runs its own slice)."""
+    h = torch.bmm(xb, p.wi[experts].to(xb.dtype))
     if cfg.mlp_gated:
-        g = torch.bmm(xb, p.wi_gate.to(xb.dtype))
+        g = torch.bmm(xb, p.wi_gate[experts].to(xb.dtype))
         h = F.silu(g) * h
     else:
         h = gelu(h)
-    return torch.bmm(h, p.wo.to(xb.dtype))
+    return torch.bmm(h, p.wo[experts].to(xb.dtype))
 
 
 def _capacity(cfg: ModelConfig, t: int, dropless: bool = False) -> int:
@@ -158,5 +165,6 @@ def moe_apply(cfg: ModelConfig, p: MoE, x2d, impl: str = "aam",
     if impl == "dense":
         return moe_apply_dense(cfg, p, x2d, mode=mode)
     if impl == "aam_shmap" and mode == "train":
-        raise not_ported("the expert-parallel MoE (moe/shmap_moe.py)")
+        from repro_torch.moe.shmap_moe import moe_apply_shmap
+        return moe_apply_shmap(cfg, p, x2d)
     return moe_apply_aam(cfg, p, x2d, mode=mode)

@@ -21,8 +21,9 @@ so that ``cumsum(a)`` falls to about -250 over a chunk, as
 
 Beside each time: the bytes the work must move (each input read once, the
 output written once) and its causal FLOPs (L(L+1)/2 (N + P) FMAs a cell),
-as rates and as shares of the card's HBM and f32 FMA rates, the formulas
-of ``chip_smoke.py::ssd_bound``.  Then the ``-Xptxas -v`` report of
+as rates and as shares of the card's HBM rate and of the peak rate of
+the inputs' type (f32 FMA, or bf16 tensor cores), the formulas of
+``chip_smoke.py::ssd_bound``.  Then the ``-Xptxas -v`` report of
 ``csrc/ssd_chunk.cu``: registers, shared memory and spills of each kernel
 instance.  Device ms are taken as :func:`repro_torch.obs.timing.device_ms`
 says.  Needs a CUDA device; about a minute.
@@ -38,6 +39,8 @@ from repro_torch.obs.timing import REPS, WINDOWS, device_ms
 G = 6144                           # cells of one mamba2-780m prefill layer
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor-core rate, dense
+FLOP_PER_S = {"float32": F32_FLOP_PER_S, "bfloat16": BF16_FLOP_PER_S}
 DEPTH = -250.0                     # cumsum(a) at the end of a chunk, about
 # label -> (L, N, P, dtype name) of the kernel's batches
 KERNEL_CASES = {
@@ -78,14 +81,16 @@ def einsum_path(C, B, x, a):
     return torch.einsum("gls,gsp->glp", gram * _segsum_mask(a), x)
 
 
-def rates(label, ms, nbytes, flops) -> str:
+def rates(label, ms, nbytes, flops, dtype="float32") -> str:
     """One line: the time, the byte and FLOP rates, each as a share of
-    the card's, and the bound (the larger of the two times)."""
+    the card's (FLOPs at the peak of ``dtype``), and the bound (the larger
+    of the two times)."""
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / F32_FLOP_PER_S * 1e3
+    flop_ms = flops / FLOP_PER_S[dtype] * 1e3
+    peak = "f32 FMA" if dtype == "float32" else f"{dtype} peak"
     return (f"{label}: {ms:.4f} ms  {nbytes / ms / 1e9:.3f} TB/s "
             f"({byte_ms / ms:.3f} of HBM)  {flops / ms / 1e9:.2f} TFLOP/s "
-            f"({flop_ms / ms:.3f} of f32 FMA)  bound "
+            f"({flop_ms / ms:.3f} of {peak})  bound "
             f"{max(byte_ms, flop_ms):.4f} ms")
 
 
@@ -116,7 +121,7 @@ def main() -> int:
     for label, (L, n, p, dt) in KERNEL_CASES.items():
         args = inputs(G, L, n, p, getattr(torch, dt), gen)
         ms = device_ms(lambda: ssd_chunk_kernel(*args))
-        print(rates(label, ms, *work(G, L, n, p, ELEM_BYTES[dt])))
+        print(rates(label, ms, *work(G, L, n, p, ELEM_BYTES[dt]), dt))
         del args
     ms = device_ms(lambda: einsum_path(C, B, x, a))
     print(rates("(g) two einsums and a mask (models/ssm.py) on (b)'s "

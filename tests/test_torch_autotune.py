@@ -61,6 +61,17 @@ POLICY_FIELDS = ("backend", "ladder", "init_level", "adaptive", "high_water",
 SMALL = dict(ns=(4, 16), v_cal=256, warmup=0, repeats=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_cache_file(monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", "off")

@@ -27,6 +27,17 @@ from repro_torch.graphs import csr as TCSR
 FIELDS = ("owner", "position", "counts", "kept", "dropped")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.array(x)
 

@@ -1,8 +1,12 @@
 """The port's CUDA kernels against their plain versions, the wave engine
 and the graph service on the card against the CPU, the Mamba2 serving
-path on its kernel path against its plain path, and every LM family at
-smoke width on the card against the CPU (f32 logits within 1e-4 of the
-largest; the MoE plans' bucket counts bit for bit).
+path on its kernel path against its plain path, every LM family at smoke
+width on the card against the CPU (f32 logits within 1e-4 of the
+largest; the MoE plans' bucket counts bit for bit), and f32 train steps
+of each trained family on the card against the CPU (losses rtol 1e-5,
+gradients rtol 1e-4 / atol 1e-6, an update from the same gradients atol
+1e-6; every train-time plan, remat's recompute's too, equal to
+``torch.bincount``'s).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1093,3 +1097,113 @@ def test_jamba_ssd_kernel_path_matches_einsum_path(cuda, dtype):
                                                       else 0)
     v = cfg.vocab_size
     assert _rel(out[True][..., :v], out[False][..., :v]) <= FAMILY_TOL[dtype]
+
+
+# -- training ---------------------------------------------------------------
+
+TRAIN_FAMILIES = ["qwen2-1.5b", "phi3.5-moe-42b-a6.6b", "mamba2-780m",
+                  "pixtral-12b", "whisper-small"]
+# the CPU tests' bounds: losses, gradients, an update from the same
+# gradients; whisper's bf16 cross K/V hold its gradients within 2**-8 of
+# each leaf's largest (test_torch_train.py)
+TRAIN_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL, UPDATE_ATOL = 1e-5, 1e-4, 1e-6, 1e-6
+
+
+def _train_on(cfg, rcfg, base, device, steps):
+    import copy
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    model = copy.deepcopy(base).to(device)
+    params = dict(model.named_parameters())
+    opt_state = make_optimizer(rcfg).init(params)
+    step = make_train_step(cfg, rcfg, model)
+    stream = TokenStream(cfg, rcfg.shape, seed=0)
+    losses = []
+    for i in range(steps):
+        params, opt_state, m = step(params, opt_state, i,
+                                    stream.tensors(i, device=device))
+        losses.append(m["loss"].item())
+    return losses, {k: v.detach().cpu() for k, v in params.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_steps_on_card_match_cpu(cuda, arch):
+    """Each family at smoke width, f32, remat full, from the same weights
+    on the card and on the CPU: two train steps' losses within rtol 1e-5;
+    the first step's gradients within rtol 1e-4 / atol 1e-6; one AdamW
+    update from the CPU's gradients within atol 1e-6.  (Parameters after
+    whole steps are not compared: AdamW's first steps are about lr
+    sign(g), so a gradient at rounding level moves its parameter by up to
+    lr on one device and not the other.)"""
+    import copy
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import grads_fn
+    cfg = smoke_model(ARCHS[arch])
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
+                     compute_dtype="float32", remat="full")
+    base = M.init(cfg, 0, device="cpu")
+    l_gpu, _ = _train_on(cfg, rcfg, base, cuda, 2)
+    l_cpu, _ = _train_on(cfg, rcfg, base, "cpu", 2)
+    for a, b in zip(l_gpu, l_cpu):
+        assert abs(a - b) <= TRAIN_LOSS_RTOL * abs(b), (l_gpu, l_cpu)
+    batch = TokenStream(cfg, rcfg.shape, seed=0).batch(0)
+    models = {dev: copy.deepcopy(base).to(dev) for dev in ("cpu", cuda)}
+    grads = {dev: grads_fn(cfg, rcfg, m, {k: torch.from_numpy(v).to(dev)
+                                          for k, v in batch.items()})[0]
+             for dev, m in models.items()}
+    for k, g in grads["cpu"].items():
+        got = grads[cuda][k].cpu()
+        if arch == "whisper-small":
+            assert float((got - g).abs().max()) <= \
+                2.0 ** -8 * float(g.abs().max()), k
+        else:
+            torch.testing.assert_close(got, g, rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL,
+                                       msg=lambda m, k=k: f"{k}: {m}")
+    opt = make_optimizer(rcfg)
+    for dev, m in models.items():
+        p = dict(m.named_parameters())
+        opt.update({k: g.to(dev) for k, g in grads["cpu"].items()},
+                   opt.init(p), p, 0)
+    for (k, a), b in zip(models[cuda].named_parameters(),
+                         models["cpu"].parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=UPDATE_ATOL,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_train_plans_on_card_match_bincount(cuda, remat):
+    """Every plan of a phi3.5 train step on the card (the forward's and,
+    under remat, the recompute's) equals ``count_backend="jnp"``'s, and
+    the kernel runs once per MoE layer, twice under remat."""
+    from repro_torch.moe import moe_layer
+    cfg = smoke_model(ARCHS["phi3.5-moe-42b-a6.6b"])
+    rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
+                     compute_dtype="float32", remat=remat)
+    base = M.init(cfg, 0, device="cpu")
+    calls = []
+    real = moe_layer.plan_buckets_sorted
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        calls.append((args, out))
+        return out
+    moe_layer.plan_buckets_sorted = recording
+    before = bucket_count_kernel.launches
+    try:
+        _train_on(cfg, rcfg, base, cuda, 1)
+    finally:
+        moe_layer.plan_buckets_sorted = real
+    moe_layers = sum(s.mlp == "moe" for s in cfg.full_pattern)
+    assert bucket_count_kernel.launches - before == len(calls) == \
+        moe_layers * (1 if remat == "none" else 2)
+    for args, (plan, order) in calls:
+        plan_j, order_j = plan_buckets_sorted(*args, count_backend="jnp")
+        assert torch.equal(order, order_j)
+        for f in ("owner", "position", "counts", "kept", "dropped"):
+            assert torch.equal(getattr(plan, f), getattr(plan_j, f)), f

@@ -47,6 +47,17 @@ ITERS = 5                 # PageRank iterations
 SPAWN_TIMEOUT_S = 120
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @functools.lru_cache(maxsize=None)
 def _graph(name):
     """(reference graph, port graph on the CPU, source vertex)."""

@@ -55,6 +55,17 @@ CAP = dict(capacity=64, max_subrounds=256)
 TXN = dict(X=8, K=3, V=40, seed=7)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _deterministic_tuner(monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE", "off")

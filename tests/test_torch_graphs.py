@@ -9,6 +9,7 @@ equal, PageRank within rtol 2e-4 / atol 1e-6.
 """
 import numpy as np
 import pytest
+import torch
 
 from repro.core.commit import CommitSpec as JSpec
 from repro.graphs import generators as JG
@@ -27,6 +28,17 @@ BACKENDS = [("atomic", None), ("coarse", 64), ("pallas", None),
 BACKEND_IDS = ["atomic", "coarse-m64", "pallas", "fused"]
 GRAPHS = {"kron8": lambda: JG.kronecker(8, 8, seed=1),
           "grid": lambda: JG.grid2d(12)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _arrays(g):

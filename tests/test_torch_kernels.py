@@ -31,6 +31,17 @@ OP_TYPES = [("min", np.int32), ("max", np.int32), ("add", np.int32),
 OP_IDS = [f"{op}-{np.dtype(dt).name}" for op, dt in OP_TYPES]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(op, dt, v, n, rng):
     """(state, val): 'first' treats negative state as empty and takes
     non-negative payloads; 'or' payloads are truth values."""

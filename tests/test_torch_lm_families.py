@@ -70,6 +70,17 @@ TIE = 0.05
 MIN_COMPARED = 16   # bf16 positions that must stay comparable, all rows
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(a):
     if torch.is_tensor(a):
         return a.detach().float().numpy()

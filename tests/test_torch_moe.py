@@ -30,6 +30,17 @@ from repro_torch.moe import moe_layer as tm
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, **kw):
     return (dataclasses.replace(j_smoke(J_ARCHS[arch]), **kw),
             dataclasses.replace(smoke_model(ARCHS[arch]), **kw))

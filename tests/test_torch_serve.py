@@ -38,6 +38,17 @@ BACKENDS = ("atomic", "coarse", "pallas", "fused")
 TIMING = ("drain_s", "last_drain_s")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_tuner_files(monkeypatch):
     monkeypatch.setenv("REPRO_AUTOTUNE", "off")

@@ -27,6 +27,17 @@ SHAPES = [(2, 32, 8, 16), (4, 64, 16, 64), (1, 128, 64, 32),
           (3, 1, 16, 16), (3, 7, 16, 16), (2, 100, 16, 16)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite's workers share the host's cores: one torch thread each
+    (a worker's default of one thread per core makes the port's small
+    ops several times slower under the suite's load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(g, L, n, p, seed, decay=0.1):
     rng = np.random.default_rng(seed)
     C = rng.normal(size=(g, L, n)).astype(np.float32)

@@ -54,11 +54,12 @@ def test_work_is_what_chip_smoke_bounds(label):
                                                   elem)
     assert nbytes / smoke.HBM_BYTES_PER_S * 1e3 == pytest.approx(byte_ms,
                                                                   rel=1e-12)
-    assert flops / smoke.F32_FLOP_PER_S * 1e3 == pytest.approx(flop_ms,
-                                                                rel=1e-12)
+    assert flops / ssd_profile.FLOP_PER_S[dt] * 1e3 == pytest.approx(
+        flop_ms, rel=1e-12)
     assert ssd_profile.HBM_BYTES_PER_S == smoke.HBM_BYTES_PER_S
-    assert ssd_profile.F32_FLOP_PER_S == smoke.F32_FLOP_PER_S
-    line = ssd_profile.rates(label, 1.0, nbytes, flops)
+    assert ssd_profile.FLOP_PER_S == {"float32": smoke.F32_FLOP_PER_S,
+                                      "bfloat16": smoke.BF16_FLOP_PER_S}
+    line = ssd_profile.rates(label, 1.0, nbytes, flops, dt)
     assert f"bound {bound:.4f} ms" in line
     # at layer 0's shapes, bytes bound the kernel
     if label.startswith("(b)"):
