@@ -139,15 +139,35 @@ Phases, one or more lines each:
    (d) a one-rank NCCL group: ``moe_apply(impl="aam_shmap",
    mode="train")`` against ``"aam"``, and ``make_compressed_dp_step``
    against the dequantised single-rank mean.
+13. the static analysis and the FLOP counter on the card, the four
+   kernels as dispatched ops: (a) ``python -m repro_torch.analysis.lint
+   --device cuda --trace-off-clean`` on each tier exits 0, every one of
+   its 22 entries clean with a commit, and on the kernel tiers the
+   scoped kernel commits equal the commit kernels' launches; (b) a
+   planted module, written to a temporary directory, exits 1 with
+   exactly the raw-scatter and unscoped-kernel findings; (c) one round
+   of each of the six algorithms on phase 4's scale-21 graph on
+   ``pallas`` and ``fused``, untraced and under the race pass (clean,
+   each scoped kernel op a launch), beside phase 4's ms a round; (d)
+   ``cost_of`` over phase 11a's phi3.5 prefill and phase 11b's qwen2
+   prefill: FLOPs, dot FLOPs, bytes, the bucket-count ops (one a MoE
+   layer, each a launch) and the expert rows' padding share; (e) smoke
+   Mamba2's prefill counts the same dot FLOPs on the SSD kernel as on
+   the plain path.  Parts c and d run where their data is, after phase 10
+   and inside phase 11; a, b and e after phase 12.
 
-Phases 4, 6, 8, 9, 10, 7, 11 and 12 (run in that order) are the main
-path: each zeroes the kernels' launch counters before it and reads them
-after, and fails if a kernel of its path was not launched (phase 6: the
+Phases 4, 6, 8, 9, 10, 7, 11, 12 and 13 (run in that order) are the main
+path: each zeroes the kernels' launch counters before it (each part of
+phase 13 before it) and reads them after, and fails if a kernel of its
+path was not launched (phase 6: the
 bucket count, and the fused kernel with 4 lanes; phases 8 and 10: both
 commit kernels and the bucket count; phase 9: a commit kernel and the
 bucket count; phase 7: the SSD kernel once per layer; phase 11: the
 bucket count once per MoE layer per forward of its ``generate()``; phase
-12a: the bucket count exactly as remat implies).  Then one
+12a: the bucket count exactly as remat implies; phase 13: all four).
+Every wrapper launches its kernel through a dispatched op
+(``torch.ops.repro_torch.*``), so the call ms below include the op's
+dispatch.  Then one
 JSON
 line of per-kernel numbers (``ms``, ``plain_ms`` and ``library_ms`` are
 device ms per launch, from launches back to back; ``call_ms`` is one
@@ -439,8 +459,9 @@ def phase_kernel_times(g, device, max_err):
 
 def phase_main_path(g, device):
     """Phase 4: BFS, SSSP and PageRank on every backend.  Returns the
-    kernels' launch counts of this phase and the ``pallas`` backend's
-    (bfs result, sssp dist, pagerank ranks)."""
+    kernels' launch counts of this phase, the ``pallas`` backend's
+    (bfs result, sssp dist, pagerank ranks) and each backend's ms a round
+    (a PageRank iteration)."""
     import torch
     from repro_torch.core.commit import BACKENDS, CommitSpec
     from repro_torch.graphs.algorithms.bfs import bfs
@@ -451,7 +472,7 @@ def phase_main_path(g, device):
     from repro_torch.kernels.fused_wave import fused_route_commit_kernel
     src = int(torch.argmax(g.degrees))
     gw = random_weights(g, seed=0)
-    results = {}
+    results, round_ms = {}, {}
     coarse_commit_kernel.launches = 0
     fused_route_commit_kernel.launches = 0
     for backend in BACKENDS:
@@ -470,6 +491,9 @@ def phase_main_path(g, device):
         t3 = time.perf_counter()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         results[backend] = (rb, sd, srounds, pr)
+        round_ms[backend] = {"bfs": (t1 - t0) / rb.rounds * 1e3,
+                             "sssp": (t2 - t1) / srounds * 1e3,
+                             "pagerank": (t3 - t2) / 20 * 1e3}
         say(f"phase 4: {backend:6s} bfs {rb.rounds} rounds "
             f"{(t1 - t0) / rb.rounds * 1e3:.2f} ms/round, "
             f"{int(rb.messages)} messages; sssp {srounds} rounds "
@@ -507,7 +531,7 @@ def phase_main_path(g, device):
         if count < 1:
             raise AssertionError(f"{name} was not launched on the main path")
     rb, sd, _, pr = results["pallas"]
-    return launches, (rb, sd, pr)
+    return launches, (rb, sd, pr), round_ms
 
 
 def count_ids(n, nb, skew, masked, gen, device):
@@ -2168,7 +2192,7 @@ def _recording(module, name, sink):
     return lambda: setattr(module, name, fn)
 
 
-def phase11_phi(device):
+def phase11_phi(device, costs13):
     """Phase 11a: phi3.5-moe at full width, 8 layers.  Returns the
     bucket-count launches of its ``generate()``, the model and the
     numbers of the count on layer 0's owner ids."""
@@ -2207,6 +2231,8 @@ def phase11_phi(device):
         raise AssertionError(f"bucket_count launched {launches} times, not "
                              f"once per MoE layer per forward "
                              f"({n_moe} x {forwards})")
+    phase13_cost("phi3.5", cfg, rcfg, model, tokens, phi["prefill_ms"],
+                 costs13)
 
     # the prefill's metrics and layer 0's owner ids
     seen = []
@@ -2343,7 +2369,7 @@ def phase11_phi_oracles(cfg, model, device):
                              f"routes equal {same_route}")
 
 
-def phase11_qwen(device):
+def phase11_qwen(device, costs13):
     """Phase 11b: qwen2-1.5b whole."""
     import torch
     b, s = QWEN_PROMPT
@@ -2365,6 +2391,8 @@ def phase11_qwen(device):
     if qwen["launches"]:
         raise AssertionError("phase 11b: a dense model launched the "
                              "bucket count")
+    phase13_cost("qwen2", cfg, rcfg, model, tokens, qwen["prefill_ms"],
+                 costs13)
     return qwen
 
 
@@ -2419,19 +2447,21 @@ def phase11_gemma(device):
                              f"{wrapped}")
 
 
-def phase_lm_families(device):
+def phase_lm_families(device, costs13):
     """Phase 11.  Returns the bucket-count launches of its main path
-    (phi3.5's ``generate()``)."""
+    (phi3.5's ``generate()``); phase 13d's ``cost_of`` over each model's
+    prefill runs here, while the weights are on the card, into
+    ``costs13``."""
     import torch
     t0 = time.perf_counter()
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("f32 matmuls must not run in TF32 here")
-    cfg, model, phi = phase11_phi(device)
+    cfg, model, phi = phase11_phi(device, costs13)
     launches = phi["launches"]
     phase11_phi_oracles(cfg, model, device)
     del model
     torch.cuda.empty_cache()
-    qwen = phase11_qwen(device)
+    qwen = phase11_qwen(device, costs13)
     torch.cuda.empty_cache()
     phase11_gemma(device)
     torch.cuda.empty_cache()
@@ -2842,6 +2872,279 @@ def phase_training(device):
     return phi["launches"]
 
 
+# -- phase 13: the static analysis and the FLOP counter on the card ---------
+
+PLANTED_RACE = """
+\"\"\"Planted violations: a raw scatter into round state and an unscoped
+launch of the fused route+commit kernel op, on the card.\"\"\"
+import torch
+
+from repro_torch.kernels.fused_wave import fused_route_commit_kernel
+
+_V = 16
+_SRC = torch.arange(_V, device="cuda")
+_DST = (torch.arange(_V, dtype=torch.int32, device="cuda") * 5 + 3) % _V
+
+
+def _racy_round(state):
+    dist = state["dist"]
+    relax = dist[_SRC] + 1
+    return {"dist": dist.scatter_reduce_(0, _DST.long(), relax, "amin")}
+
+
+def _unscoped_kernel_round(state):
+    dist = state["dist"]
+    relax = dist[_SRC] + 1
+    return {"dist": fused_route_commit_kernel(dist, _DST, relax, op="min")}
+
+
+LINT_TRACEABLES = (
+    ("planted: racy bfs round", _racy_round,
+     {"dist": torch.zeros((_V,), dtype=torch.int32, device="cuda")}),
+    ("planted: unscoped fused-kernel commit", _unscoped_kernel_round,
+     {"dist": torch.zeros((_V,), dtype=torch.int32, device="cuda")}),
+)
+"""
+
+
+def all_kernels():
+    """The four kernels' wrappers, by name."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    return {**graph_kernels(), "ssd_chunk": ssd_chunk_kernel}
+
+
+def count_all(fn):
+    """``fn()``, its host seconds (synchronised at both ends) and the
+    launches of the four kernels in it, the counters set to 0 first."""
+    kernels = all_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    out, sec = timed(fn)
+    return out, sec, {name: k.launches for name, k in kernels.items()}
+
+
+def _lint(argv):
+    """(exit code, printed text) of ``repro_torch.analysis.lint.main``."""
+    import contextlib
+    import io
+    from repro_torch.analysis import lint
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint.main(argv)
+    return rc, buf.getvalue()
+
+
+def phase13_lint(device):
+    """Phase 13a and b: aamlint on the card over every tier, then on a
+    planted module.  Returns the kernels' launches in them."""
+    import re
+    import tempfile
+    from repro_torch.core.commit import BACKENDS
+    total = {}
+    for backend in BACKENDS:
+        (rc, out), sec, launched = count_all(lambda: _lint(
+            ["--device", "cuda", "--trace-off-clean", "--backend", backend]))
+        if rc != 0:
+            raise AssertionError(f"phase 13a: aamlint --backend {backend} "
+                                 f"exited {rc}:\n{out[-4000:]}")
+        entries = [(int(c), int(k)) for c, k in re.findall(
+            r"waverace .*: ok \(commits=(\d+), kernel commits=(\d+)", out)]
+        if len(entries) != 22 or min(c for c, _ in entries) < 1:
+            raise AssertionError(f"phase 13a: {backend}: {len(entries)} "
+                                 f"clean entries with a commit, not 22")
+        scoped = sum(k for _, k in entries)
+        commit_launches = (launched["coarse_commit"]
+                           + launched["fused_route_commit"])
+        if scoped != commit_launches or (backend in ("pallas", "fused")
+                                         and not scoped):
+            raise AssertionError(f"phase 13a: {backend}: {scoped} scoped "
+                                 f"kernel commits, {commit_launches} "
+                                 f"commit-kernel launches")
+        if "trace-off control" not in out:
+            raise AssertionError("phase 13a: the trace-off check did not "
+                                 "run its positive control")
+        say(f"phase 13a: aamlint --device cuda --trace-off-clean --backend "
+            f"{backend}: exit 0 in {sec:.1f} s; 22 entries clean, commits "
+            f"{sum(c for c, _ in entries)}, scoped kernel commits {scoped} "
+            f"= commit-kernel launches {commit_launches}; launches "
+            f"{launched}")
+        total = {n: total.get(n, 0) + v for n, v in launched.items()}
+    name = "planted_race_card"
+    with tempfile.TemporaryDirectory() as d:
+        pathlib.Path(d, f"{name}.py").write_text(PLANTED_RACE)
+        sys.path.insert(0, d)
+        try:
+            (rc, out), sec, launched = count_all(lambda: _lint(
+                ["--device", "cuda", "--skip-waverace", "--module", name]))
+        finally:
+            sys.path.remove(d)
+            sys.modules.pop(name, None)
+    found = [line for line in out.splitlines() if "FINDING" in line]
+    if rc != 1 or len(found) != 2 \
+            or "raw aten::scatter_reduce_" not in found[0] \
+            or "kernel launch (repro_torch::fused_route_commit)" \
+            not in found[1]:
+        raise AssertionError(f"phase 13b: the planted module gave exit {rc} "
+                             f"and {found}")
+    say(f"phase 13b: aamlint on a planted module: exit 1 with exactly the "
+        f"raw-scatter and unscoped-kernel findings, {sec:.1f} s")
+    return {n: total.get(n, 0) + v for n, v in launched.items()}
+
+
+def phase13_rounds(g, device, round_ms):
+    """Phase 13c: one round of each of the six algorithms on phase 4's
+    graph, on ``pallas`` and ``fused``, untraced and under the race pass.
+    Returns the kernels' launches and the seconds it took."""
+    import torch
+    from repro_torch.analysis import waverace
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms import (bfs, boruvka, coloring,
+                                               pagerank, sssp, stconn)
+    from repro_torch.launch.mesh import make_mesh
+    t_part = time.perf_counter()
+    mesh = make_mesh(device=device)
+    src = int(torch.argmax(g.degrees))
+    t = 0 if src else 1
+    points = [
+        ("bfs", lambda: bfs.distributed_bfs(mesh, g, src)),
+        ("sssp", lambda: sssp.distributed_sssp(mesh, g, src)),
+        ("pagerank", lambda: pagerank.distributed_pagerank(mesh, g)),
+        ("coloring", lambda: coloring.distributed_coloring(mesh, g)),
+        ("stconn", lambda: stconn.distributed_stconn(mesh, g, src, t)),
+        ("boruvka", lambda: boruvka.distributed_boruvka(mesh, g)),
+    ]
+    caps = waverace.capture_algorithms(points)
+    total = {}
+    for backend in ("pallas", "fused"):
+        spec = CommitSpec(backend=backend, stats=False)
+        for label, cap in caps:
+            state0, step = waverace.round_of(cap, spec)
+            step(state0)                                  # warm-up
+            _, plain_s = timed(lambda: step(state0))
+            rep, traced_s, launched = count_all(
+                lambda: waverace.check_traceable(label, step, state0))
+            if not rep.ok or rep.commits < 1 or rep.kernel_commits < 1 \
+                    or rep.kernel_commits != launched["coarse_commit"] \
+                    + launched["fused_route_commit"]:
+                raise AssertionError(f"phase 13c: {backend} {label}: {rep}, "
+                                     f"launches {launched}")
+            p4 = round_ms[backend].get(label)
+            say(f"phase 13c: {backend:6s} {label:8s} one round on the "
+                f"scale-21 graph: traced {traced_s * 1e3:.2f} ms, untraced "
+                f"{plain_s * 1e3:.2f} ms (recorder and walk "
+                f"{(traced_s - plain_s) * 1e3:+.2f} ms)"
+                + (f", phase 4 {p4:.2f} ms a round" if p4 else "")
+                + f"; clean, commits {rep.commits}, scoped kernel commits "
+                f"{rep.kernel_commits} = launches, state reads {rep.reads}")
+            total = {n: total.get(n, 0) + v for n, v in launched.items()}
+            del state0, step
+    return total, time.perf_counter() - t_part
+
+
+def phase13_cost(label, cfg, rcfg, model, tokens, prefill_ms, sink):
+    """Phase 13d: ``cost_of`` over a whole prefill of phase 11's model,
+    through the op recorder; the result goes into ``sink``."""
+    import torch
+    from repro_torch.analysis.optrace import record
+    from repro_torch.models import model as M
+    from repro_torch.moe import moe_layer
+    from repro_torch.runtime.flops import op_cost, records_cost
+    (_, rec), sec, launched = count_all(lambda: record(
+        M.prefill, cfg, rcfg, model, {"tokens": tokens}))
+    cost = records_cost(rec.records)
+    b, s = tokens.shape
+    counted = cost.calls.get("repro_torch::bucket_count", 0)
+    n_moe = sum(spec.mlp == "moe" for spec in cfg.full_pattern) \
+        * cfg.num_blocks
+    if counted != n_moe or launched["bucket_count"] != n_moe:
+        raise AssertionError(f"phase 13d: {label}: {counted} bucket-count "
+                             f"ops and {launched['bucket_count']} launches "
+                             f"for {n_moe} MoE layers")
+    if not (cost.dot_flops > 0 and cost.flops >= cost.dot_flops
+            and cost.bytes > 0):
+        raise AssertionError(f"phase 13d: {label}: {cost}")
+    extra = ""
+    if n_moe:
+        t, e = b * s, cfg.num_experts
+        cap = moe_layer._capacity(cfg, t, dropless=True)
+        expert = sum(op_cost(r).dot_flops for r in rec.records
+                     if r.name == "aten::bmm"
+                     and tuple(r.args[0].shape[:2]) == (e, cap))
+        real = t * cfg.experts_per_token / (e * cap)
+        extra = (f"; expert GEMMs {expert:.4g} of the dot FLOPs "
+                 f"({expert / cost.dot_flops:.3f}), on {e} x {cap} rows "
+                 f"of which {t * cfg.experts_per_token} are real: padding "
+                 f"share {1 - real:.4f}, {expert * (1 - real):.4g} FLOPs")
+    bound_ms = cost.dot_flops / BF16_FLOP_PER_S * 1e3
+    say(f"phase 13d: cost_of({label} prefill {b} x {s}): FLOPs "
+        f"{cost.flops:.6g}, dot FLOPs {cost.dot_flops:.6g}, bytes "
+        f"{cost.bytes:.6g} (unfused upper bound), {len(rec.records)} ops, "
+        f"bucket-count ops {counted} = launches {launched['bucket_count']}"
+        f"{extra}; the dot FLOPs at 989 TFLOP/s take {bound_ms:.1f} ms of "
+        f"the prefill's {prefill_ms:.1f}; the recorded prefill took "
+        f"{sec * 1e3:.1f} ms")
+    sink[label] = (launched, sec)
+    del rec
+    torch.cuda.empty_cache()
+
+
+def phase13_mamba(device):
+    """Phase 13e: smoke Mamba2's prefill on the SSD kernel counts the dot
+    FLOPs of the plain path."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig, smoke_model
+    from repro_torch.models import model as M
+    from repro_torch.runtime.flops import cost_of
+    b, s = ORACLE_TRAIN
+    cfg = smoke_model(ARCHS[MAMBA])
+    model = M.init(cfg, SEED, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=device, dtype=torch.int32)}
+    costs, launched = {}, {}
+    for use_pallas in (True, False):
+        rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", s, b, "prefill"),
+                         compute_dtype="float32", use_pallas=use_pallas)
+        costs[use_pallas], _, launched[use_pallas] = count_all(
+            lambda: cost_of(M.prefill, cfg, rcfg, model, batch))
+    k, p = costs[True], costs[False]
+    layers = cfg.num_layers
+    if k.dot_flops != p.dot_flops \
+            or k.calls.get("repro_torch::ssd_chunk") != layers \
+            or launched[True]["ssd_chunk"] != layers \
+            or launched[False]["ssd_chunk"]:
+        raise AssertionError(f"phase 13e: kernel path {k.dot_flops} dot "
+                             f"FLOPs, {k.calls.get('repro_torch::ssd_chunk')}"
+                             f" SSD ops, {launched}; plain path "
+                             f"{p.dot_flops}")
+    say(f"phase 13e: smoke {MAMBA} prefill {b} x {s}, f32: dot FLOPs on the "
+        f"SSD kernel {k.dot_flops:.6g} = the plain path's {p.dot_flops:.6g} "
+        f"({layers} SSD ops, {layers} launches); FLOPs {k.flops:.6g} / "
+        f"{p.flops:.6g}")
+    return {n: launched[True][n] + launched[False][n] for n in KERNELS}
+
+
+def phase_analysis(device, rounds, costs):
+    """Phase 13: the remaining parts (a, b, e) after phase 12, then the
+    phase's summary with parts c and d, which ran where their data was.
+    Returns the kernels' launches in the phase."""
+    t0 = time.perf_counter()
+    launches = phase13_lint(device)
+    mamba = phase13_mamba(device)
+    parts = [launches, mamba, rounds[0]] + [v[0] for v in costs.values()]
+    total = {n: sum(part.get(n, 0) for part in parts) for n in KERNELS}
+    sec = time.perf_counter() - t0 + rounds[1] + sum(
+        v[1] for v in costs.values())
+    say(f"phase 13: done in {sec:.1f} s (c {rounds[1]:.1f} s after phase "
+        f"10, d {sum(v[1] for v in costs.values()):.1f} s in phase 11); "
+        f"launches {total}")
+    for name, count in total.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched in phase 13")
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2885,7 +3188,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     times = phase_kernel_times(g, device, max_err)
     times["bucket_count"] = phase_count_times(g, device)
-    launches, single = phase_main_path(g, device)
+    launches, single, round_ms = phase_main_path(g, device)
 
     small = kronecker(16, 16, seed=SEED, device=device)
     src = int(torch.argmax(small.degrees))
@@ -2907,17 +3210,22 @@ def main() -> int:
                                                          single)
     tuned_launches = phase_tuned(g, device, single, slice_one)
     serve_launches = phase_serving(g, device, single, slice_one, batch)
+    rounds13 = phase13_rounds(g, device, round_ms)
     del g, single, small, slice_one, batch
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
     torch.cuda.empty_cache()
-    lm_launches = phase_lm_families(device)
+    costs13 = {}
+    lm_launches = phase_lm_families(device, costs13)
     torch.cuda.empty_cache()
     train_launches = phase_training(device)
+    analysis_launches = phase_analysis(device, rounds13, costs13)
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches)) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
     launches["bucket_count"] += lm_launches + train_launches
+    launches = {name: n + analysis_launches[name]
+                for name, n in launches.items()}
 
     kernels = [dict(name=name, route="cuda", source=src_path,
                     replaces=replaces, launches=launches[name],

@@ -30,6 +30,10 @@ Differences from :mod:`repro.core.commit`:
 * ``sanitize`` (or ``REPRO_SANITIZE=1``) replays each commit with its
   messages permuted (:mod:`repro_torch.analysis.sanitize`) and raises
   ``SanitizeError`` at once on a difference.
+* The write path of :func:`commit` and :func:`fused_commit_site` runs
+  under :func:`commit_scope` (a thread-local counter) where the
+  reference opens ``jax.named_scope("aam_commit")``; the race pass of
+  :mod:`repro_torch.analysis.waverace` keys on it.
 * Payloads are [n] per message, or vectors: [n, d] into a [V, d] state,
   on ``atomic`` and ``coarse`` — ``add`` at any ``stats``, ``min``/``max``
   at ``stats=False`` (``applied`` counts a message whose row changed in
@@ -47,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 
 import torch
 
@@ -126,6 +131,35 @@ class CommitSpec:
                              f"{self.tile_m}/{self.block_v}")
 
 
+class _CommitScope(threading.local):
+    """This thread's depth inside :func:`commit_scope` and the number of
+    outermost entries so far (an op recorder tells two commits apart by
+    the entry it ran in)."""
+    depth = 0
+    entries = 0
+
+    def __enter__(self):
+        if not self.depth:
+            self.entries += 1
+        self.depth += 1
+
+    def __exit__(self, *exc):
+        self.depth -= 1
+
+
+_SCOPE = _CommitScope()
+
+
+def commit_scope() -> _CommitScope:
+    """``with commit_scope():`` marks the conflict-resolved write path,
+    the counterpart of the reference's ``jax.named_scope("aam_commit")``.
+    :mod:`repro_torch.analysis.waverace` treats scatter-class writes and
+    kernel launches inside it as the protected commit site, and flags
+    those outside it that write round state.  Entering costs two
+    attribute updates of a thread-local counter."""
+    return _SCOPE
+
+
 def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32, device=device)
 
@@ -156,10 +190,11 @@ def commit(state: torch.Tensor, msgs: Messages, op: str,
         backend = "coarse"
     if state.dim() != 1 or msgs.payload.dim() != 1:
         _check_vector(state, msgs, op, spec, backend)
-    res = _dispatch(state, msgs, op, spec, backend)
-    if (spec.sanitize or _sanitize_env()) and msgs.capacity > 1:
-        from repro_torch.analysis.sanitize import shadow_check
-        shadow_check(state, msgs, op, spec, backend, res.state)
+    with _SCOPE:
+        res = _dispatch(state, msgs, op, spec, backend)
+        if (spec.sanitize or _sanitize_env()) and msgs.capacity > 1:
+            from repro_torch.analysis.sanitize import shadow_check
+            shadow_check(state, msgs, op, spec, backend, res.state)
     return res
 
 
@@ -307,7 +342,15 @@ def fused_commit_site(state, tgt, payload, op: str, spec: CommitSpec, *,
     axis width.  One kernel launch computes the local keys and commits.
 
     ``stats=False`` reports ``success = slot occupied``; ``stats=True``
-    rebuilds the local keys only for the success/applied accounting."""
+    rebuilds the local keys only for the success/applied accounting.
+    Runs under :func:`commit_scope`, as :func:`commit` does."""
+    with _SCOPE:
+        return _fused_site(state, tgt, payload, op, spec, lane=lane,
+                           base=base, width=width)
+
+
+def _fused_site(state, tgt, payload, op: str, spec: CommitSpec, *, lane,
+                base, width: int) -> CommitResult:
     tile_m = spec.m if spec.m is not None else spec.tile_m
     kw = dict(lane=lane, base=base, width=width, op=op, tile_m=tile_m)
     payload = payload.to(state.dtype)

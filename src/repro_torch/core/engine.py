@@ -37,7 +37,6 @@ This module mirrors :mod:`repro.core.engine`, with these differences:
 * Degraded-mesh mode is a simulation over process groups; see
   :func:`run_distributed`.  ``DistributedResult.shards`` names the shard
   count the run finished on.
-* The waverace lint capture is not ported.
 """
 from __future__ import annotations
 
@@ -788,6 +787,19 @@ def _run_degraded(alg, g, r: _Runner, kw: dict, *, snapshot_rounds,
     return res
 
 
+_LINT_CAPTURE = False   # toggled by waverace.capture_algorithms()
+
+
+class LintCapture(Exception):
+    """Carries the normalized (alg, graph, batch) out of
+    :func:`run_distributed` when the analyzer only wants the round
+    function, not a mesh execution."""
+
+    def __init__(self, alg, g, batch):
+        super().__init__(f"lint capture: {alg.name}")
+        self.alg, self.g, self.batch = alg, g, batch
+
+
 def run_distributed(alg: AlgorithmSpec, mesh, g, *,
                     capacity: int | str = 4096,
                     m: int | None = None, axis: str = "data",
@@ -837,6 +849,12 @@ def run_distributed(alg: AlgorithmSpec, mesh, g, *,
     if isinstance(g, GraphSet):
         batch = batch if batch is not None else g.axis
         g = g.union()
+    if _LINT_CAPTURE:
+        # repro_torch.analysis.waverace sets this flag, calls the public
+        # distributed_* wrappers (so their own state/payload plumbing
+        # runs), and catches the normalized (alg, graph, axis) triple
+        # here instead of executing the round loop.
+        raise LintCapture(alg, g, batch)
     if not isinstance(g, Graph):
         raise NotImplementedError(
             f"run_distributed takes a Graph or a GraphSet, not "

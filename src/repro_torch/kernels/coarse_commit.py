@@ -8,16 +8,20 @@ One ``tile_m`` tile of messages is one transaction; ``stats=True`` also
 returns the number of messages whose target occurs more than once in
 their tile.
 
-A tensor on the CPU goes to the plain version
-(:func:`repro_torch.kernels.ref.coarse_commit_ref`); a CUDA tensor goes
-to the hand-written kernel ``csrc/coarse_commit.cu``, which launches on
-the current stream, does not synchronise and allocates nothing (this
-wrapper allocates the output, the rank scratch for ``first`` and the
-counter for ``stats=True``, and nothing else).  The kernel combines
-messages to one target in a shared-memory table of each CTA before they
-reach device memory (``csrc/commit_tiles.cuh``).  Its conflict count sorts
-each tile in shared memory, so with ``stats=True`` it takes ``tile_m``
-up to :data:`MAX_STATS_TILE`.
+The wrapper checks its arguments and calls the dispatched op
+``torch.ops.repro_torch.coarse_commit``, so that an op recorder
+(:mod:`repro_torch.analysis.optrace`) sees one launch as one op.  On the
+CPU the op runs the plain version
+(:func:`repro_torch.kernels.ref.coarse_commit_ref`); on a CUDA tensor it
+runs the hand-written kernel ``csrc/coarse_commit.cu``, which launches on
+the current stream, does not synchronise and allocates nothing (the op
+allocates the output, the rank scratch for ``first`` and the counter for
+``stats=True``, and nothing else).  The op writes a fresh output and
+returns ``(state, conflicts)``, ``conflicts`` empty without ``stats``.
+The kernel combines messages to one target in a shared-memory table of
+each CTA before they reach device memory (``csrc/commit_tiles.cuh``).
+Its conflict count sorts each tile in shared memory, so with
+``stats=True`` it takes ``tile_m`` up to :data:`MAX_STATS_TILE`.
 """
 from __future__ import annotations
 
@@ -79,6 +83,54 @@ def pointer(t):
     return None if t is None else t.data_ptr()
 
 
+def no_count(state):
+    """The ops' conflict output without ``stats``: an empty int32 tensor
+    (no allocation, no launch)."""
+    return torch.empty(0, dtype=torch.int32, device=state.device)
+
+
+def count_shape(state, stats: bool):
+    """Shape-only outputs of a commit op, for ``register_fake``."""
+    return (torch.empty_like(state),
+            state.new_empty(() if stats else (0,), dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::coarse_commit", mutates_args=(),
+                         device_types="cpu")
+def _coarse_commit_op(state: torch.Tensor, idx: torch.Tensor,
+                      val: torch.Tensor, op: str, tile_m: int, block_v: int,
+                      stats: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    out = coarse_commit_ref(state, idx, val, op=op, tile_m=tile_m,
+                            block_v=block_v, stats=stats)
+    return out if stats else (out, no_count(state))
+
+
+@_coarse_commit_op.register_kernel("cuda")
+def _coarse_commit_cuda(state, idx, val, op, tile_m, block_v, stats):
+    v, n = state.shape[0], idx.shape[0]
+    out, rank, conflicts = scratch(state, op, stats)
+    lib = _build.load("coarse_commit")
+    err = lib.aam_coarse_commit(
+        out.data_ptr(), state.data_ptr(), idx.data_ptr(), val.data_ptr(),
+        pointer(rank), pointer(conflicts), n, v, -(-v // block_v) * block_v,
+        OPS.index(op), _DTYPES[state.dtype], tile_m, int(stats),
+        torch.cuda.current_stream(state.device).cuda_stream)
+    _build.check(lib, err, "coarse_commit")
+    coarse_commit_kernel.launches += 1
+    return out, (conflicts[0] if stats else no_count(state))
+
+
+@_coarse_commit_op.register_fake
+def _(state, idx, val, op, tile_m, block_v, stats):
+    return count_shape(state, stats)
+
+
+def cost(state, idx, val, *rest):
+    """(flops, dot flops, bytes) of one op: a combine per message; the
+    state, ids and payloads read once, the state written once."""
+    return idx.shape[0], 0, 2 * state.nbytes + idx.nbytes + val.nbytes
+
+
 def coarse_commit_kernel(state, idx, val, *, op: str = "min",
                          tile_m: int = 256, block_v: int = 512,
                          stats: bool = False):
@@ -91,23 +143,14 @@ def coarse_commit_kernel(state, idx, val, *, op: str = "min",
     check_args(op, tile_m)
     if block_v < 1:
         raise ValueError(f"block_v must be >= 1, got {block_v}")
-    if state.device.type == "cpu":
-        return coarse_commit_ref(state, idx, val, op=op, tile_m=tile_m,
-                                 block_v=block_v, stats=stats)
-    if state.device.type != "cuda":
+    if state.device.type == "cuda":
+        check_cuda_inputs(state, val, [("idx", idx)], tile_m=tile_m,
+                          stats=stats)
+    elif state.device.type != "cpu":
         raise ValueError(f"no kernel for device {state.device}")
-    check_cuda_inputs(state, val, [("idx", idx)], tile_m=tile_m, stats=stats)
-    v, n = state.shape[0], idx.shape[0]
-    out, rank, conflicts = scratch(state, op, stats)
-    lib = _build.load("coarse_commit")
-    err = lib.aam_coarse_commit(
-        out.data_ptr(), state.data_ptr(), idx.data_ptr(), val.data_ptr(),
-        pointer(rank), pointer(conflicts), n, v, -(-v // block_v) * block_v,
-        OPS.index(op), _DTYPES[state.dtype], tile_m, int(stats),
-        torch.cuda.current_stream(state.device).cuda_stream)
-    _build.check(lib, err, "coarse_commit")
-    coarse_commit_kernel.launches += 1
-    return (out, conflicts[0]) if stats else out
+    out, conflicts = torch.ops.repro_torch.coarse_commit(
+        state, idx, val, op, tile_m, block_v, stats)
+    return (out, conflicts) if stats else out
 
 
 coarse_commit_kernel.launches = 0

@@ -5,8 +5,10 @@ cells, ``y[t] = sum_{s<=t} (C_t.B_s) exp(cs_t - cs_s) x_s`` with
 ``cs = cumsum(a)``, accumulated in f32 and returned in ``x.dtype``.  It is
 called by :func:`repro_torch.models.ssm.ssm_apply` when ``use_pallas``.
 
-A tensor on the CPU goes to the plain version
-(:func:`repro_torch.kernels.ref.ssd_chunk_ref`); a CUDA tensor goes to the
+The wrapper calls the dispatched op ``torch.ops.repro_torch.ssd_chunk``:
+on the CPU the plain version (:func:`repro_torch.kernels.ref.ssd_chunk_ref`;
+under autograd on the CPU the wrapper calls it directly, outside the op,
+so that its own autograd applies), on a CUDA tensor the
 hand-written kernel ``csrc/ssd_chunk.cu`` (tensor cores in 3xTF32, a
 persistent grid streaming C and B through shared memory, the L x L matrix
 in registers), which launches on the current stream and does not
@@ -29,6 +31,51 @@ NO_ROOM = -1                   # csrc/ssd_chunk.cu: kErrNoRoom
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@torch.library.custom_op("repro_torch::ssd_chunk", mutates_args=(),
+                         device_types="cpu")
+def _ssd_chunk_op(C: torch.Tensor, B: torch.Tensor, x: torch.Tensor,
+                  a: torch.Tensor) -> torch.Tensor:
+    return ssd_chunk_ref(C, B, x, a)
+
+
+@_ssd_chunk_op.register_kernel("cuda")
+def _ssd_chunk_cuda(C, B, x, a):
+    g, L, n = C.shape
+    p = x.shape[2]
+    y = torch.empty_like(x)
+    if g == 0:
+        return y
+    lib = _build.load("ssd_chunk")
+    err = lib.aam_ssd_chunk(
+        y.data_ptr(), C.data_ptr(), B.data_ptr(), x.data_ptr(), a.data_ptr(),
+        g, L, n, p, _DTYPES[C.dtype],
+        torch.cuda.current_stream(C.device).cuda_stream)
+    if err == NO_ROOM:
+        raise ValueError(f"L={L}, P={p}: a cell needs more shared memory "
+                         f"than a CTA may opt in to on {C.device}")
+    _build.check(lib, err, "ssd_chunk")
+    ssd_chunk_kernel.launches += 1
+    return y
+
+
+@_ssd_chunk_op.register_fake
+def _(C, B, x, a):
+    return torch.empty_like(x)
+
+
+def cost(C, B, x, a):
+    """(flops, dot flops, bytes) of one op: the products C.B^T and
+    (masked, decayed gram).x, 2 G L^2 (N + P), as the plain version's two
+    batched products count; the cumsum (G L), the decays' exp and mask
+    and the gram's scaling (3 G L^2) beside them; C, B, x, a read once, y
+    written once."""
+    g, L, n = C.shape
+    p = x.shape[2]
+    dot = 2 * g * L * L * (n + p)
+    return (dot + 3 * g * L * L + g * L, dot,
+            C.nbytes + B.nbytes + 2 * x.nbytes + a.nbytes)
+
+
 def ssd_chunk_kernel(C, B, x, a):
     """C, B: [G, L, N]; x: [G, L, P]; a: [G, L].  Returns y [G, L, P]."""
     if C.dim() != 3 or B.shape != C.shape or x.dim() != 3 \
@@ -37,7 +84,10 @@ def ssd_chunk_kernel(C, B, x, a):
                          f"x {tuple(x.shape)}, a {tuple(a.shape)} are not "
                          "[G, L, N], [G, L, N], [G, L, P], [G, L]")
     if C.device.type == "cpu":
-        return ssd_chunk_ref(C, B, x, a)
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (C, B, x, a)):
+            return ssd_chunk_ref(C, B, x, a)
+        return torch.ops.repro_torch.ssd_chunk(C, B, x, a)
     if C.device.type != "cuda":
         raise ValueError(f"no kernel for device {C.device}")
     for name, t in (("B", B), ("x", x), ("a", a)):
@@ -60,20 +110,7 @@ def ssd_chunk_kernel(C, B, x, a):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (C, B, x, a)):
         raise NotImplementedError("the SSD kernel has no backward yet "
                                   "(ROADMAP Queue 1 item 9, training)")
-    y = torch.empty_like(x)
-    if g == 0:
-        return y
-    lib = _build.load("ssd_chunk")
-    err = lib.aam_ssd_chunk(
-        y.data_ptr(), C.data_ptr(), B.data_ptr(), x.data_ptr(), a.data_ptr(),
-        g, L, n, p, _DTYPES[C.dtype],
-        torch.cuda.current_stream(C.device).cuda_stream)
-    if err == NO_ROOM:
-        raise ValueError(f"L={L}, P={p}: a cell needs more shared memory "
-                         f"than a CTA may opt in to on {C.device}")
-    _build.check(lib, err, "ssd_chunk")
-    ssd_chunk_kernel.launches += 1
-    return y
+    return torch.ops.repro_torch.ssd_chunk(C, B, x, a)
 
 
 ssd_chunk_kernel.launches = 0

@@ -30,9 +30,11 @@ names what can ride here.
 Differences from the reference: each chunk is a host loop of rounds with
 one host read a round (the reference's ``lax.while_loop``), and the
 state is updated in place at :meth:`insert`/:meth:`release`, so
-:meth:`extract` returns a copy of the cell's row.  The reference's
-``lint_traceables`` (jaxpr for ``waverace``) waits for the analysis
-passes (ROADMAP Queue 1 item 7).
+:meth:`extract` returns a copy of the cell's row.
+:func:`lint_traceables` exposes the chunk bodies alone, as state-only
+callables, to :mod:`repro_torch.analysis.waverace`; since the port's
+rounds run eagerly, its example states carry an inserted query in every
+cell, so that one round runs.
 """
 from __future__ import annotations
 
@@ -373,3 +375,53 @@ class ProductWave:
         if not self.done:
             self._run(_RUN_ALL)
         return self.rounds
+
+
+def lint_traceables(*, lanes: int = 2, sizes=(5, 7), seed: int = 0,
+                    spec: C.CommitSpec | None = None, device="cuda"):
+    """``(name, fn_of_state, example_state)`` triples exposing each
+    product-chunk round body to :mod:`repro_torch.analysis.waverace`.
+
+    The returned callables take ONLY the chunk's state dict — graph
+    arrays, governor maps, and degree vectors are closed over, so the
+    analyzer can seed its state chain from exactly the state's tensors.
+    Each runs its chunk at ``limit=1`` with a concrete spec (default
+    ``atomic``; ``auto`` is refused, as no calibration may run inside a
+    check), on a wave with one query inserted in every cell."""
+    from repro_torch import resolve_device
+    from repro_torch.graphs.generators import erdos_renyi, random_weights
+    from repro_torch.serve.queries import (BfsQuery, PprQuery, SsspQuery,
+                                           StConnQuery)
+    device = resolve_device(device)
+    spec = spec if spec is not None \
+        else C.CommitSpec(backend="atomic", stats=False)
+    if spec.backend == C.AUTO:
+        raise ValueError("lint_traceables takes a static spec, not 'auto'")
+    gs = GraphSet([
+        random_weights(erdos_renyi(int(s), avg_degree=3.0, seed=seed + i,
+                                   device=device), seed=i)
+        for i, s in enumerate(sizes)])
+    queries = {"bfs": lambda lane, n: BfsQuery(lane % n),
+               "sssp": lambda lane, n: SsspQuery(lane % n),
+               "ppr": lambda lane, n: PprQuery(lane % n, iters=2),
+               "stconn": lambda lane, n: StConnQuery(lane % n,
+                                                     (lane + 1) % n)}
+    out = []
+    for kind in PRODUCT_KINDS:
+        pw = ProductWave(kind, gs, lanes, spec=spec)
+        for lane in range(lanes):
+            for graph, n in enumerate(sizes):
+                pw.insert(lane, graph, queries[kind](lane, int(n)))
+        if kind in ("bfs", "sssp"):
+            fn = (lambda st, pw=pw, w=(kind == "sssp"):
+                  _dist_chunk(pw.g, pw.axis, st, pw._step, 1, w)[0])
+        elif kind == "ppr":
+            fn = (lambda st, pw=pw:
+                  _ppr_chunk(pw.g, pw.axis, pw._gov, pw._egov, pw._deg,
+                             pw._dangling, 0.85, st, pw._step, 1)[0])
+        else:
+            fn = (lambda st, pw=pw:
+                  _stconn_chunk(pw.g, pw.axis, pw._gov, pw._egov, st,
+                                pw._step, 1)[0])
+        out.append((f"product_wave/{kind}", fn, pw.state))
+    return out

@@ -6,7 +6,10 @@ largest; the MoE plans' bucket counts bit for bit), and f32 train steps
 of each trained family on the card against the CPU (losses rtol 1e-5,
 gradients rtol 1e-4 / atol 1e-6, an update from the same gradients atol
 1e-6; every train-time plan, remat's recompute's too, equal to
-``torch.bincount``'s).
+``torch.bincount``'s); each kernel as a dispatched op under the op
+recorder (one record a launch), the SSD op's counted dot FLOPs against
+its plain version's, and the race pass over the whole catalog on the
+kernel tiers (scoped kernel commits equal to the launches).
 
 Every test here is marked ``cuda`` and skips without a CUDA device.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -1207,3 +1210,79 @@ def test_train_plans_on_card_match_bincount(cuda, remat):
         assert torch.equal(order, order_j)
         for f in ("owner", "position", "counts", "kept", "dropped"):
             assert torch.equal(getattr(plan, f), getattr(plan_j, f)), f
+
+
+# -- the kernels as dispatched ops, the race pass and the FLOP counter ------
+
+def _op_calls(device):
+    g = torch.Generator().manual_seed(0)
+    state = torch.randint(0, 9, (4096,), dtype=torch.int32,
+                          generator=g).to(device)
+    idx = torch.randint(-1, 4096, (8192,), dtype=torch.int32,
+                        generator=g).to(device)
+    val = torch.randint(0, 9, (8192,), dtype=torch.int32,
+                        generator=g).to(device)
+    C, B, x = (torch.randn(12, 64, 32, generator=g).to(device)
+               for _ in range(3))
+    a = -torch.rand(12, 64, generator=g).to(device)
+    return {
+        "repro_torch::coarse_commit": (coarse_commit_kernel, lambda:
+            coarse_commit_kernel(state, idx, val, op="add", stats=True)),
+        "repro_torch::fused_route_commit": (fused_route_commit_kernel, lambda:
+            fused_route_commit_kernel(state, idx, val, base=3, op="max")),
+        "repro_torch::bucket_count": (bucket_count_kernel, lambda:
+            bucket_count_kernel(idx, 7)),
+        "repro_torch::ssd_chunk": (ssd_chunk_kernel, lambda:
+            ssd_chunk_kernel(C, B, x, a)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["repro_torch::coarse_commit",
+                                  "repro_torch::fused_route_commit",
+                                  "repro_torch::bucket_count",
+                                  "repro_torch::ssd_chunk"])
+def test_kernel_op_is_one_record_per_launch(cuda, name):
+    """Under the op recorder on the card, each launch is one record of its
+    op, and the wrapper's launch counter moves by one."""
+    from repro_torch.analysis.optrace import record
+    wrapper, call = _op_calls(cuda)[name]
+    call()                       # build and load the kernel first
+    before = wrapper.launches
+    _, rec = record(call)
+    torch.cuda.synchronize()
+    ops = [r.name for r in rec.records if r.name.startswith("repro_torch::")]
+    assert ops == [name]
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_ssd_op_dot_flops_equal_plain(cuda):
+    from repro_torch.runtime.flops import cost_of
+    g = torch.Generator().manual_seed(1)
+    C, B = (torch.randn(48, 128, 128, generator=g).to(cuda) for _ in range(2))
+    x = torch.randn(48, 128, 64, generator=g).to(cuda)
+    a = -torch.rand(48, 128, generator=g).to(cuda)
+    kernel = cost_of(ssd_chunk_kernel, C, B, x, a)
+    plain = cost_of(ref.ssd_chunk_ref, C, B, x, a)
+    assert kernel.calls == {"repro_torch::ssd_chunk": 1}
+    assert kernel.dot_flops == plain.dot_flops == 2 * 48 * 128 * 128 * 192
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_race_pass_clean_on_card(cuda, backend):
+    """The race pass over the whole catalog on a kernel tier on the card:
+    clean, a commit in every entry, and every scoped kernel op a launch."""
+    from repro_torch.analysis import waverace
+    kernel = coarse_commit_kernel if backend == "pallas" \
+        else fused_route_commit_kernel
+    before = kernel.launches
+    reps = waverace.check_all(spec=CommitSpec(backend=backend, stats=False),
+                              device="cuda")
+    torch.cuda.synchronize()
+    assert len(reps) == 22
+    for rep in reps:
+        assert rep.ok, (rep.name, rep.findings)
+        assert rep.commits >= 1 and rep.kernel_commits >= 1, rep.name
+    assert sum(r.kernel_commits for r in reps) == kernel.launches - before

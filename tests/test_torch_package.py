@@ -63,7 +63,13 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.train.grad_compression",
                      "repro_torch.launch.train",
                      "repro_torch.moe.shmap_moe",
-                     "repro_torch.obs.train_profile"):
+                     "repro_torch.obs.train_profile",
+                     "repro_torch.analysis.optrace",
+                     "repro_torch.analysis.algebra",
+                     "repro_torch.analysis.keyspace",
+                     "repro_torch.analysis.waverace",
+                     "repro_torch.analysis.lint",
+                     "repro_torch.runtime.flops"):
             assert name in names, name
         print(len(names))
     """)
@@ -108,6 +114,7 @@ def _entry_points():
     from repro_torch.launch import train
     from repro_torch.moe import shmap_moe
     from repro_torch.train import train_step
+    from repro_torch.analysis import lint
     edges = np.array([0, 1]), np.array([1, 2])
     cfg = smoke_model(ARCHS["mamba2-780m"])
     rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 4, 1, "decode"))
@@ -144,10 +151,11 @@ def _entry_points():
         lambda: train_step.init_train_state(cfg, rcfg),
         lambda: TokenStream(cfg, rcfg.shape).tensors(0),
         lambda: shmap_moe.make_expert_mesh(1, 1),
+        lambda: lint.main([]),
     ] + _tuner_calls()
 
 
-@pytest.mark.parametrize("i", range(28))
+@pytest.mark.parametrize("i", range(29))
 def test_entry_points_default_to_cuda(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
