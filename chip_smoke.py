@@ -155,8 +155,24 @@ Phases, one or more lines each:
    Mamba2's prefill counts the same dot FLOPs on the SSD kernel as on
    the plain path.  Parts c and d run where their data is, after phase 10
    and inside phase 11; a, b and e after phase 12.
+14. the parallel layouts and the dry run, after phase 13: (a)
+   ``make_sharded_train_step`` on a one-rank NCCL group
+   (``make_host_mesh(1, 1)``), phi3.5-moe at its published width, phase
+   12a's 2 layers, f32, remat full, 2 AdamW steps on 4 x 2048, parameters
+   and AdamW state as DTensors, against ``make_train_step`` from the same
+   seed (run in turn; parameters within 1e-6), ms a step and peak memory
+   of both; (b) ``pipeline_forward`` on 2 gloo ranks both on ``cuda:0``
+   (spawned; boundary tensors through host memory), phi3.5-moe at its
+   published width, 2 stages of 1 block, 2 microbatches of 1 x 2048, f32:
+   the logits against each microbatch's plain forward (1e-5) and the
+   gradients of a cross entropy against the plain forward's (1e-4), each
+   stage's ms, the bytes crossing the boundary, peak memory; (c) the dry
+   run on the host (``build_cell`` on qwen2-1.5b x train_4k, prefill_32k,
+   decode_32k on 16 x 16 and phi3.5-moe x train_4k on 2 x 16 x 16, fake
+   tensors, a ``fake`` process group) and the roofline rows, host
+   seconds and collective totals.
 
-Phases 4, 6, 8, 9, 10, 7, 11, 12 and 13 (run in that order) are the main
+Phases 4, 6, 8, 9, 10, 7, 11, 12, 13 and 14 (run in that order) are the main
 path: each zeroes the kernels' launch counters before it (each part of
 phase 13 before it) and reads them after, and fails if a kernel of its
 path was not launched (phase 6: the
@@ -164,7 +180,9 @@ bucket count, and the fused kernel with 4 lanes; phases 8 and 10: both
 commit kernels and the bucket count; phase 9: a commit kernel and the
 bucket count; phase 7: the SSD kernel once per layer; phase 11: the
 bucket count once per MoE layer per forward of its ``generate()``; phase
-12a: the bucket count exactly as remat implies; phase 13: all four).
+12a: the bucket count exactly as remat implies; phase 13: all four;
+phase 14: the bucket count as remat implies, in the sharded steps and in
+each pipeline stage, whose counters its processes report).
 Every wrapper launches its kernel through a dispatched op
 (``torch.ops.repro_torch.*``), so the call ms below include the op's
 dispatch.  Then one
@@ -189,7 +207,11 @@ import time
 import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 SXM's published peaks, kept in one place
+from repro_torch.launch.roofline import F32_FLOPS as F32_FLOP_PER_S  # noqa: E402
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOP_PER_S  # noqa: E402
 ADD_RTOL, ADD_ATOL = 2e-4, 1e-6
 SCALE = 21                         # Kronecker scale of the main path's graph
 GRID_LOG2_V, GRID_LOG2_N = 21, 26  # phase 3's state and batch sizes
@@ -215,8 +237,6 @@ LANES = 4                          # phases 6 and 8's query lanes
 LANE_PPR_ITERS = 5                 # phase 8's lane PageRank iterations
 TENANTS = (8, 16)                  # phase 8's graph batch: count, scale
 SERVE_GRAPHS = 16                  # phase 10's graph budget of a wave
-F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
-BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor-core rate, dense
 MAMBA = "mamba2-780m"              # phase 7's model, at its published width
 PROMPT, NEW_TOKENS = (8, 2048), 32  # phase 7's batch x prompt, greedy tokens
 SSD_LS = (1, 7, 64, 100, 125, 128)  # phase 7's chunk lengths
@@ -3145,6 +3165,332 @@ def phase_analysis(device, rounds, costs):
     return total
 
 
+# -- phase 14: the parallel layouts and the dry run -------------------------
+
+SHARD_STEPS = 2                    # phase 14a: f32 steps, each path
+SHARD_ATOL = 1e-6                  # phase 14a: parameters, sharded vs not
+PIPE_MB = (2, 1, 2048)             # phase 14b: microbatches x batch x seq
+PIPE_LOGIT_ATOL, PIPE_GRAD_ATOL = 1e-5, 1e-4
+PIPE_TIMEOUT_S = 300
+DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
+                ("qwen2-1.5b", "prefill_32k", False),
+                ("qwen2-1.5b", "decode_32k", False),
+                (PHI, "train_4k", True))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _phi_train_cfg():
+    """(config, f32 run config) of phase 14a: phi3.5 at its published
+    width, phase 12a's depth and batch."""
+    import dataclasses
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    b, s = TRAIN_BATCH
+    cfg = dataclasses.replace(ARCHS[PHI], num_layers=PHI_TRAIN_LAYERS)
+    return cfg, RunConfig(model=cfg, shape=ShapeConfig("train", s, b,
+                                                       "train"),
+                          compute_dtype="float32", remat="full")
+
+
+def phase14_sharded(device):
+    """Phase 14a: ``make_sharded_train_step`` on a one-rank NCCL group
+    (``make_host_mesh(1, 1)``), parameters and AdamW state as DTensors,
+    against ``make_train_step`` from the same seed, the two run in turn.
+    Returns the bucket-count launches of the sharded steps."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (RULES, init_train_state,
+                                              make_sharded_train_step,
+                                              make_train_step)
+    cfg, rcfg = _phi_train_cfg()
+    opt = make_optimizer(rcfg)
+    stream = TokenStream(cfg, rcfg.shape, seed=0)
+    batches = [stream.tensors(i, device=device) for i in range(SHARD_STEPS)]
+
+    def run(sharded):
+        model, params, opt_state = init_train_state(cfg, rcfg, opt,
+                                                    seed=SEED, device=device)
+        if sharded:
+            params = shd.shard_tree(params, RULES, mesh)
+            opt_state = shd.shard_tree(opt_state, RULES, mesh)
+            del model
+            step = make_sharded_train_step(cfg, rcfg, opt, mesh, RULES)
+        else:
+            step = make_train_step(cfg, rcfg, model, opt)
+        torch.cuda.synchronize()
+        bucket_count_kernel.launches = 0
+        ms, losses = [], []
+        for i, batch in enumerate(batches):
+            (params, opt_state, m), sec = timed(
+                lambda: step(params, opt_state, i, batch))
+            ms.append(sec * 1e3)
+            losses.append(float(m["loss"]))
+        kinds = {type(v) is DTensor for v in params.values()} | {
+            type(v) is DTensor for _, v in shd.tree_items(opt_state)}
+        out = {k: (v.to_local() if sharded else v).detach().cpu()
+               for k, v in params.items()}
+        launches = bucket_count_kernel.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, opt_state, step
+        torch.cuda.empty_cache()
+        return out, ms, losses, launches, kinds, peak
+
+    torch.cuda.reset_peak_memory_stats()
+    want, ms0, l0, launches0, _, peak0 = run(False)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_host_mesh(1, 1)
+        torch.cuda.reset_peak_memory_stats()
+        got, ms1, l1, launches, kinds, peak1 = run(True)
+    finally:
+        dist.destroy_process_group()
+    err = max(float((got[k] - w).abs().max()) for k, w in want.items())
+    moe_layers = sum(sp.mlp == "moe" for sp in cfg.full_pattern) \
+        * cfg.num_blocks
+    expected = 2 * moe_layers * SHARD_STEPS
+    b, s = TRAIN_BATCH
+    say(f"phase 14a: {PHI} at d_model {cfg.d_model}, {cfg.num_layers} "
+        f"layers, f32, remat full, AdamW, {b} x {s} tokens, {SHARD_STEPS} "
+        f"steps: make_sharded_train_step on NCCL 1 rank, "
+        f"make_host_mesh(1, 1), parameters and AdamW state DTensors: "
+        f"{kinds == {True}}; ms a step {', '.join(f'{x:.1f}' for x in ms1)} "
+        f"(unsharded {', '.join(f'{x:.1f}' for x in ms0)}); losses "
+        f"{', '.join(f'{x:.6f}' for x in l1)} (unsharded "
+        f"{', '.join(f'{x:.6f}' for x in l0)}); parameters vs the unsharded "
+        f"step {err:.3g} (bound {SHARD_ATOL:g}); peak {peak1:.2f} GiB "
+        f"(unsharded {peak0:.2f}); bucket_count launches {launches} "
+        f"(remat full: 2 x {moe_layers} MoE layers x {SHARD_STEPS} steps = "
+        f"{expected}; unsharded {launches0})")
+    if not (kinds == {True} and err <= SHARD_ATOL and launches == expected
+            and all(math.isfinite(x) for x in l1)):
+        raise AssertionError("phase 14a: sharded step vs unsharded")
+    return launches
+
+
+def _phase14_rank(rank, world, port, out_path):
+    """One stage of phase 14b: gloo rank ``rank`` of ``world``, on
+    ``cuda:0``.  Writes its results to ``out_path``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import pipeline as PP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        nmb, b, s = PIPE_MB
+        cfg = dataclasses.replace(ARCHS[PHI], num_layers=world)
+        rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", s, nmb * b,
+                                                      "train"),
+                         compute_dtype="float32", remat="full")
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        tokens = torch.randint(0, cfg.vocab_size, (nmb * b, s),
+                               generator=gen, device=device,
+                               dtype=torch.int32)
+        labels = torch.randint(0, cfg.vocab_size, (nmb * b, s),
+                               generator=gen, device=device)
+
+        def loss_of(logits):      # mean over microbatches of each one's CE
+            return sum(F.cross_entropy(
+                logits[i * b:(i + 1) * b].float().flatten(0, 1),
+                labels[i * b:(i + 1) * b].flatten())
+                for i in range(nmb)) / nmb
+
+        model = M.init(cfg, SEED, device=device)
+        mesh = make_mesh(axis="pod", group=dist.group.WORLD, device=device)
+        mine = set(PP.stage_layers(cfg, rank, world))
+
+        def held(name):
+            head, _, rest = name.partition(".")
+            if head == "layers":
+                return int(rest.split(".")[0]) in mine
+            if head == "embed":
+                return rank in (0, world - 1)
+            return rank == world - 1
+
+        # the oracle: the plain forward of each microbatch alone
+        want = torch.cat([M._forward(cfg, rcfg, model,
+                                     {"tokens": tokens[i * b:(i + 1) * b]},
+                                     "train")[0] for i in range(nmb)])
+        loss_of(want).backward()
+        want = want.detach()
+        want_g = {k: p.grad.detach().clone()
+                  for k, p in model.named_parameters() if held(k)}
+        model.zero_grad(set_to_none=True)
+        PP.keep_stage(cfg, model, mesh, "pod")
+        torch.cuda.empty_cache()
+        f = PP.pipeline_forward(cfg, rcfg, mesh, "pod", nmb)
+        dist.barrier()
+        torch.cuda.synchronize()
+        bucket_count_kernel.launches = 0
+        t0 = time.perf_counter()
+        logits = f(model, tokens)
+        loss_of(logits).backward()
+        torch.cuda.synchronize()
+        out["stage_s"] = time.perf_counter() - t0
+        out["launches"] = bucket_count_kernel.launches
+        out["logit_err"] = float((logits.detach() - want).abs().max())
+        got_g = {k: p.grad for k, p in model.named_parameters()
+                 if p.grad is not None}
+        out["grads"] = set(got_g) <= set(want_g) and all(
+            any(k.startswith(f"layers.{l}.") for k in got_g) for l in mine)
+        out["grad_err"] = max(float((got_g[k] - want_g[k]).abs().max())
+                              for k in got_g)
+        out["grad_scale"] = max(float(g.abs().max()) for g in want_g.values())
+        out["staged"] = f.link.host_staged
+        out["bytes_sent"] = f.link.bytes_sent
+        out["bytes_back"] = f.link.bytes_back
+        out["logit_bytes"] = logits.numel() * logits.element_size()
+        out["layers"] = sorted(mine)
+        out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    except BaseException as e:   # noqa: BLE001 — reported by the parent
+        import traceback
+        out["error"] = "".join(traceback.format_exception(e))
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+
+
+def phase14_pipeline(device):
+    """Phase 14b: ``pipeline_forward`` on 2 gloo ranks, both on ``cuda:0``
+    (boundary tensors staged through the host), against each
+    microbatch's plain forward.  Returns the bucket-count launches of the
+    pipelined runs."""
+    import torch
+    import torch.multiprocessing as mp
+    world = 2
+    out_dir = ROOT / "build" / "phase14_pipeline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = [out_dir / f"rank{r}.json" for r in range(world)]
+    for p in paths:
+        p.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = []
+    mpc = mp.get_context("spawn")
+    for r in range(world):
+        p = mpc.Process(target=_phase14_rank,
+                        args=(r, world, port, str(paths[r])))
+        p.start()
+        procs.append(p)
+    try:
+        for p in procs:
+            p.join(max(PIPE_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    if not all(p.exists() for p in paths):
+        raise AssertionError(f"phase 14b: a stage wrote no result "
+                             f"(exit codes {[p.exitcode for p in procs]})")
+    ranks = [json.loads(p.read_text()) for p in paths]
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"phase 14b: rank {r['rank']}:\n"
+                                 f"{r['error']}")
+    nmb, b, s = PIPE_MB
+    for r in ranks:
+        say(f"phase 14b: stage {r['rank']} (layers {r['layers']}): forward "
+            f"and backward {r['stage_s'] * 1e3:.1f} ms; logits vs each "
+            f"microbatch's plain forward {r['logit_err']:.3g} (bound "
+            f"{PIPE_LOGIT_ATOL:g}); its gradients {r['grad_err']:.3g} "
+            f"(bound {PIPE_GRAD_ATOL:g}; largest gradient "
+            f"{r['grad_scale']:.3g}); activations sent {r['bytes_sent']} "
+            f"B, gradients sent back {r['bytes_back']} B, logits "
+            f"broadcast {r['logit_bytes']} B; peak {r['peak']:.2f} GiB; "
+            f"bucket_count launches {r['launches']}")
+    launches = sum(r["launches"] for r in ranks)
+    say(f"phase 14b: {PHI} at full width, 2 stages of 1 block, {nmb} "
+        f"microbatches of {b} x {s}, f32, remat full, gloo with boundary "
+        f"tensors through host memory (host_staged "
+        f"{[r['staged'] for r in ranks]}), both ranks on cuda:0; "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    ok = all(r["logit_err"] <= PIPE_LOGIT_ATOL and r["grads"] and
+             r["grad_err"] <= PIPE_GRAD_ATOL and r["staged"] for r in ranks)
+    ok &= ranks[0]["bytes_sent"] == nmb * b * s * 4096 * 4 == \
+        ranks[1]["bytes_back"]
+    if not ok or launches != 2 * 2 * nmb:
+        raise AssertionError(f"phase 14b: pipeline vs plain forward "
+                             f"(launches {launches})")
+    return launches
+
+
+def phase14_dryrun():
+    """Phase 14c: ``build_cell`` on the dry-run cells, then the roofline
+    over their records; on the host, with fake tensors."""
+    import shutil
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import roofline as R
+    out = ROOT / "build" / "phase14_dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = D.build_cell(arch, shape, multi_pod)
+        rec["tag"] = ""
+        (out / f"{arch}__{shape}__{rec['mesh']}.json").write_text(
+            json.dumps(rec, indent=1))
+        tot = rec["collectives"]["totals"]
+        say(f"phase 14c: {arch} x {shape} on {rec['mesh']}: host s "
+            f"{time.perf_counter() - t0:.1f} (op_cost "
+            f"{rec['host_s']['op_cost']:.1f}, sharded run "
+            f"{rec['host_s']['sharded_run']:.1f}); state "
+            f"{rec['state_bytes_per_device'] / 2 ** 30:.3f} GiB a device; "
+            f"op flops {rec['op_cost']['flops']:.4e}, dot "
+            f"{rec['op_cost']['dot_flops']:.4e}, bytes "
+            f"{rec['op_cost']['bytes_unfused']:.4e}; collectives "
+            f"{tot['count']}, result {tot['result_bytes']} B, wire "
+            f"{tot['wire_bytes']} B a device "
+            f"({rec['collectives']['comm_debug_counts']})")
+    rows = R.load(str(out))
+    for line in R.to_markdown(rows).splitlines():
+        say(f"phase 14c: {line}")
+    if len(rows) != len(DRYRUN_CELLS):
+        raise AssertionError("phase 14c: a dry-run record is missing")
+
+
+def phase_parallel(device):
+    """Phase 14.  Returns the bucket-count launches of its main path (the
+    sharded steps and the pipelined stages)."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = phase14_sharded(device)
+    launches += phase14_pipeline(device)
+    phase14_dryrun()
+    say(f"phase 14: done in {time.perf_counter() - t0:.1f} s; bucket_count "
+        f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3219,11 +3565,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_training(device)
     analysis_launches = phase_analysis(device, rounds13, costs13)
+    torch.cuda.empty_cache()
+    parallel_launches = phase_parallel(device)
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches)) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
-    launches["bucket_count"] += lm_launches + train_launches
+    launches["bucket_count"] += lm_launches + train_launches + \
+        parallel_launches
     launches = {name: n + analysis_launches[name]
                 for name, n in launches.items()}
 

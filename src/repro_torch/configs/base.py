@@ -193,10 +193,14 @@ class RunConfig:
     ``train_step.init_train_state``) and ``model``.  ``grad_compression``
     is read by neither package: the compressed data-parallel step is
     built with ``train.grad_compression.make_compressed_dp_step``.
-    ``shard_grads`` (``constrain_like_params``, a no-op), ``multi_pod``
-    and ``serve_tp`` have no effect: the port runs on one card and shards
-    nothing.  ``seed`` is the reference's; the launchers take
-    ``--seed``."""
+    ``shard_grads`` makes the train steps place their gradient trees like
+    the parameters (``train_step.constrain_like_params``: DTensor leaves
+    in the training rules' layout, where the sharded step's gradients
+    already arrive; plain leaves unchanged).  ``multi_pod`` names the 2 x
+    16 x 16 production mesh (``launch.mesh.make_production_mesh``; the
+    launcher's ``--multi-pod``), and ``serve_tp`` picks the TP-only serving
+    rules and bf16 weights in ``launch.dryrun``.  ``seed`` is the
+    reference's; the launchers take ``--seed``."""
     model: ModelConfig
     shape: ShapeConfig
     multi_pod: bool = False

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import sharding as shd
 from repro_torch.models.layers import (dense_init, gen_device, ones, rmsnorm,
                                       rope, scalar)
 
@@ -219,23 +220,40 @@ class AttnCall:
 
 
 def _out(p: Attention, o, dtype):
-    """[B, S, H, D] @ wo [H, D, d] -> [B, S, d]."""
+    """[B, S, H, D] @ wo [H, D, d] -> [B, S, d], as one [B·S, H·D]
+    product: a 3-D left operand with a size-1 dim (decode) would fold to
+    a product or not depending on that dim's stride, which fake tensors
+    (the dry run) set differently from real ones."""
     h, k, d = p.wo.shape
-    return o.flatten(2) @ p.wo.to(dtype).reshape(h * k, d)
+    b, s = o.shape[:2]
+    return (o.reshape(b * s, h * k) @ p.wo.to(dtype).reshape(h * k, d)
+            ).reshape(b, s, d)
+
+
+def _constraint(x, axes):
+    return shd.logical_constraint(shd.ShardingRules(shd.TRAIN_RULES), x, axes)
 
 
 def attn_apply(cfg: ModelConfig, p: Attention, x, positions, call: AttnCall,
                *, chunk=None, causal_skip=False, seq_parallel=False):
     """Training / prefill self-attention (no cache).  Returns (out, (k,
     v)), k and v grouped [B, S, KV, D].  ``seq_parallel`` keeps q whole
-    in the chunked path, as the reference does under sequence
-    parallelism; the port shards nothing."""
+    in the chunked path and places q, k and v as the reference does under
+    sequence parallelism (q sharded over ``"act_seq"``, the grouped K/V
+    gathered whole before they are repeated; on DTensors only)."""
     q = project_q(cfg, p, x, positions, use_rope=call.use_rope)
     k, v = project_kv(cfg, p, x, positions, use_rope=call.use_rope)
+    seq, whole = ("batch", "act_seq", None, None), ("batch", None, None, None)
+    if seq_parallel:
+        q = _constraint(q, seq)
+        k = _constraint(_constraint(k, seq), whole)
+        v = _constraint(_constraint(v, seq), whole)
+    kf, vf = repeat_kv(k, cfg.num_heads), repeat_kv(v, cfg.num_heads)
+    if seq_parallel:
+        kf, vf = _constraint(kf, whole), _constraint(vf, whole)
     out = attention_core(
-        q, repeat_kv(k, cfg.num_heads), repeat_kv(v, cfg.num_heads),
-        positions, positions, causal=call.causal, window=call.window,
-        softcap_val=cfg.attn_softcap, chunk=chunk or cfg.attn_chunk,
+        q, kf, vf, positions, positions, causal=call.causal,
+        window=call.window, softcap_val=cfg.attn_softcap, chunk=chunk or cfg.attn_chunk,
         causal_skip=causal_skip, kv_chunk_only=seq_parallel)
     return _out(p, out, x.dtype), (k, v)
 

@@ -19,7 +19,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.lm import _embed_in, _merge_metrics, remat
+from repro_torch.models.lm import (_constraint, _embed_in, _merge_metrics,
+                                   remat)
 
 
 class EncLayer(nn.Module):
@@ -81,7 +82,8 @@ def _enc_layer(cfg: ModelConfig, p: EncLayer, x, positions):
     y, _ = attn.attn_apply(cfg, p.mixer, h, positions, call)
     x = x + y
     h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
-    return x + L.mlp_apply(cfg, p.mlp, h)
+    return _constraint(x + L.mlp_apply(cfg, p.mlp, h),
+                       ("batch", "seq", "act_embed"))
 
 
 def _cross_kv(cfg: ModelConfig, p: DecLayer, enc):
@@ -99,7 +101,8 @@ def _dec_layer(cfg: ModelConfig, p: DecLayer, x, positions, enc, mode: str):
     h = L.rmsnorm(x, p.norm_cross, cfg.norm_eps)
     x = x + attn.cross_attn_apply(cfg, p.cross, h, ck, cv)
     h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
-    x = x + L.mlp_apply(cfg, p.mlp, h)
+    x = _constraint(x + L.mlp_apply(cfg, p.mlp, h),
+                    ("batch", "seq", "act_embed"))
     if mode != "prefill":
         return x, None
     return x, {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
@@ -119,7 +122,8 @@ def forward(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, tokens,
         x, entry = layer_fn(cfg, p, x, positions, enc, mode)
         entries.append(entry)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    logits = L.lm_logits(cfg, model.embed, x)
+    logits = _constraint(L.lm_logits(cfg, model.embed, x),
+                         ("batch", "seq", "vocab"))
     cache = ({k: torch.stack([e[k] for e in entries]) for k in entries[0]}
              if mode == "prefill" else None)
     return logits, cache, _merge_metrics([], x.device)

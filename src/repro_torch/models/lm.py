@@ -10,8 +10,12 @@ no MLP, run one after another in a Python loop (the reference scans over
 ``num_blocks`` repeats of the pattern).  Caches keep the reference's
 layout: a list over pattern positions ``i``, each a dict of tensors
 stacked over blocks ``j``, so ``cache[i][k][j]`` belongs to layer
-``j * len(pattern) + i``.  The reference's sharding constraints have no
-counterpart: the port runs on one card.
+``j * len(pattern) + i``.  ``_constraint`` is the reference's sharding
+hook (:func:`repro_torch.runtime.sharding.logical_constraint` under the
+training rules), called where the reference calls it: it redistributes a
+DTensor activation to the rules' layout and passes a plain tensor, which
+is what the sharded train step computes on (its weights are gathered
+whole).
 
 Under autograd, :func:`remat` wraps each layer as the reference's
 ``_remat`` wraps its scanned block: ``"full"`` keeps only the layer's
@@ -36,6 +40,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import Mamba2Mixer, ssm_apply, ssm_decode
 from repro_torch.moe import moe_layer
+from repro_torch.runtime import sharding as shd
+
+RULES = shd.ShardingRules(shd.TRAIN_RULES)
+CACHE_KV_AXES = ("batch", "cache_seq", "kv_heads", "head_dim")
+
+
+def _constraint(x, axes):
+    return shd.logical_constraint(RULES, x, axes)
 
 
 class Layer(nn.Module):
@@ -109,7 +121,8 @@ def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
             y, ck, cv, cp = attn.attn_decode(
                 cfg, p.mixer, h, pos, cache["k"], cache["v"], cache["pos"],
                 call)
-            new_cache = {"k": ck, "v": cv, "pos": cp}
+            new_cache = {"k": _constraint(ck, CACHE_KV_AXES),
+                         "v": _constraint(cv, CACHE_KV_AXES), "pos": cp}
         else:
             y, (k, v) = attn.attn_apply(
                 cfg, p.mixer, h, positions, call,
@@ -142,6 +155,8 @@ def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
         if cfg.use_post_norm:
             y = L.rmsnorm(y, p.post_norm2, cfg.norm_eps, zero_centered=True)
         x = x + y
+    seq_ax = "act_seq" if (rcfg.seq_parallel and mode != "decode") else "seq"
+    x = _constraint(x, ("batch", seq_ax, "act_embed"))
     return x, new_cache, metrics
 
 
@@ -161,7 +176,8 @@ def _prefill_cache(cfg: ModelConfig, spec: LayerSpec, k, v, positions,
         k, v, pos_slice = k[:, order], v[:, order], pos_slice[order]
     else:
         pos_slice = positions[0]
-    return {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16),
+    return {"k": _constraint(k.to(torch.bfloat16), CACHE_KV_AXES),
+            "v": _constraint(v.to(torch.bfloat16), CACHE_KV_AXES),
             "pos": pos_slice.to(torch.int32)}
 
 
@@ -189,7 +205,8 @@ def _embed_in(cfg: ModelConfig, rcfg: RunConfig, model, tokens,
     b, s, _ = x.shape
     positions = (torch.arange(s, dtype=torch.int32, device=x.device)
                  + pos_offset).expand(b, s)
-    return L.add_positions(cfg, model.embed, x, positions), positions
+    x = L.add_positions(cfg, model.embed, x, positions)
+    return _constraint(x, ("batch", "seq", "act_embed")), positions
 
 
 def _merge_metrics(mets: list[dict], device) -> dict:
@@ -243,7 +260,8 @@ def forward(cfg: ModelConfig, rcfg: RunConfig, model: LM, tokens,
         mets.append(met)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps,
                   zero_centered=cfg.use_post_norm)
-    logits = L.lm_logits(cfg, model.embed, x)
+    logits = _constraint(L.lm_logits(cfg, model.embed, x),
+                         ("batch", "seq", "vocab"))
     cache = _stack(cfg, entries) if mode == "prefill" else None
     return logits, cache, _merge_metrics(mets, x.device)
 

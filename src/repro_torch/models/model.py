@@ -131,10 +131,14 @@ def cache_specs(cfg: ModelConfig, rcfg: RunConfig, shape: ShapeConfig):
                       device="meta")
 
 
+def skeleton(cfg: ModelConfig, param_dtype=torch.float32):
+    """The model's modules with ``meta`` parameters: shapes and dtypes,
+    nothing allocated, at any size."""
+    return (encdec.EncDec(cfg, None, dtype=param_dtype) if is_encdec(cfg)
+            else lm.LM(cfg, None, dtype=param_dtype))
+
+
 def param_specs(cfg: ModelConfig,
                 param_dtype=torch.float32) -> dict[str, torch.Tensor]:
-    """The model's state dict as meta tensors: shapes and dtypes, nothing
-    allocated, at any size."""
-    model = (encdec.EncDec(cfg, None, dtype=param_dtype) if is_encdec(cfg)
-             else lm.LM(cfg, None, dtype=param_dtype))
-    return model.state_dict()
+    """The model's state dict as meta tensors."""
+    return skeleton(cfg, param_dtype).state_dict()

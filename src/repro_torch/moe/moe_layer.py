@@ -32,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coalescing import plan_buckets_sorted, scatter_to_buckets
 from repro_torch.models.layers import dense_init, gelu
+from repro_torch.runtime import sharding as shd
 
 
 class MoE(nn.Module):
@@ -90,7 +91,9 @@ def aux_loss(cfg: ModelConfig, probs, experts):
     """Switch-style load-balancing loss."""
     e = cfg.num_experts
     me = probs.mean(0)                                   # [E]
-    fe = F.one_hot(experts[:, 0].long(), e).float().mean(0)
+    # one-hot by comparison: F.one_hot reads the ids' range on the host
+    fe = (experts[:, 0, None] == torch.arange(e, device=experts.device)
+          ).float().mean(0)
     return e * (me * fe).sum()
 
 
@@ -110,6 +113,8 @@ def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
 
     # coalesced payload: the [E, C, d] activation buffer
     xb = scatter_to_buckets(plan, x[token], e, cap, fill=0)
+    xb = shd.logical_constraint(shd.ShardingRules(shd.TRAIN_RULES), xb,
+                                ("experts", "expert_capacity", None))
     yb = _expert_ffn(cfg, p, xb)
 
     out = _combine(yb, plan, experts, w, cap)

@@ -35,10 +35,10 @@ from __future__ import annotations
 import subprocess
 import sys
 
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
 from repro_torch.obs.timing import REPS, WINDOWS, device_ms
 
 SCALE = 21
-HBM_BYTES_PER_S = 3.35e12
 
 
 def largest_bfs_round(g, src: int):

@@ -33,13 +33,13 @@ from __future__ import annotations
 import subprocess
 import sys
 
+from repro_torch.launch.roofline import F32_FLOPS as F32_FLOP_PER_S
+from repro_torch.launch.roofline import HBM_BW as HBM_BYTES_PER_S
+from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOP_PER_S
 from repro_torch.obs.commit_profile import ptxas_lines
 from repro_torch.obs.timing import REPS, WINDOWS, device_ms
 
 G = 6144                           # cells of one mamba2-780m prefill layer
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-F32_FLOP_PER_S = 67e12             # H100 SXM f32 FMA rate, no tensor cores
-BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor-core rate, dense
 FLOP_PER_S = {"float32": F32_FLOP_PER_S, "bfloat16": BF16_FLOP_PER_S}
 DEPTH = -250.0                     # cumsum(a) at the end of a chunk, about
 # label -> (L, N, P, dtype name) of the kernel's batches

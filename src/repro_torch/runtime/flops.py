@@ -77,9 +77,10 @@ _FREE = {
     "aten::triu", "aten::lift_fresh", "aten::lift_fresh_copy",
     "aten::_unsafe_view", "aten::detach", "aten::alias", "aten::contiguous",
 }
-# host reads: no device work beyond the copy of a scalar
+# host reads: no device work beyond the copy of a scalar; ``prim::device``
+# is a fake tensor's device query (the dry run's), no work at all
 _HOST = {"aten::_local_scalar_dense", "aten::is_nonzero", "aten::item",
-         "aten::equal"}
+         "aten::equal", "prim::device"}
 _REDUCE = {
     "aten::sum", "aten::mean", "aten::amax", "aten::amin", "aten::max",
     "aten::min", "aten::any", "aten::all", "aten::argmax", "aten::argmin",

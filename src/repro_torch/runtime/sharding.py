@@ -1,0 +1,466 @@
+"""Logical-axis sharding rules with divisibility fallback: port of
+``repro.runtime.sharding``.
+
+Every parameter, optimizer state, cache leaf and activation carries a
+tuple of *logical* axis names (e.g. ``("vocab", "embed")``).  A
+:class:`ShardingRules` table maps logical names to mesh axis names (or
+``None`` for replicated).  The mapping is applied with a divisibility
+check: a dimension that does not divide the mesh axis size falls back to
+replication (e.g. ``kv_heads=8`` on a 16-way ``model`` axis), and a mesh
+axis shards at most one dimension.  The tables and the resolution are
+the reference's.
+
+Where the reference walks JAX key paths of stacked block parameters, the
+port resolves its own names: parameters are per layer
+(``layers.7.mixer.wq``, ``encoder.3.mlp.wi``, ``decoder.0.cross.wk``,
+``embed.embedding``, ``final_norm``), so a ``layers.N``, ``encoder.N`` or
+``decoder.N`` parent takes the place of the reference's stack keys and
+the reference's leading replicated layer axis does not exist here.
+AdamW's state is ``{"m": {name: t}, "v": {name: t}}``, Adafactor's is
+``{name: {"vr", "vc"} | {"v"}}``, and the decode caches of
+``models.model.init_cache`` keep the reference's stacked layout, so their
+leaves resolve as the reference's do.
+
+On a ``torch.distributed`` :class:`~torch.distributed.device_mesh.
+DeviceMesh` a spec becomes DTensor placements (:func:`placements_for`):
+``Shard(d)`` on every mesh dim named in dim ``d``'s entry, ``Replicate()``
+elsewhere.  A dim sharded over ``("pod", "data")`` is split pod-major, as
+in JAX: DTensor orders the shards of one dim by mesh dim, and the rules'
+tuples name the mesh dims in the mesh's order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping, Sequence
+
+import torch
+
+# Logical axis -> mesh axis (or tuple of mesh axes, or None).
+LogicalRules = Mapping[str, Any]
+
+# The default TRAIN rules for the production mesh ("pod"?, "data", "model"):
+#   - FSDP: the model/embed dimension of weights shards over "data".
+#   - TP:   heads / ffn / vocab / expert dimensions shard over "model".
+#   - DP:   the batch dimension of activations shards over ("pod", "data").
+#   - SP:   long KV caches shard their sequence dimension over "model".
+TRAIN_RULES: LogicalRules = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "act_seq": "model",       # sequence parallelism (rcfg.seq_parallel)
+    "embed": "data",          # FSDP axis for params
+    "act_embed": None,        # activations keep embed replicated
+    "vocab": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_capacity": "data",
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_state": None,
+    "conv_kernel": None,
+    "cache_seq": "model",
+    "frames": None,
+    "norm": None,
+    "pos": None,
+}
+
+# Serving baseline uses the same weight layout (ZeRO-3 style: weights are
+# gathered over "data" per layer).
+SERVE_RULES: LogicalRules = dict(TRAIN_RULES)
+
+# TP-only serving layout: no FSDP dimension, so decode and prefill never
+# gather weights over "data".
+SERVE_TP_RULES: LogicalRules = dict(TRAIN_RULES)
+SERVE_TP_RULES.update({"embed": None})
+
+# the mesh dims a batch is split over, in mesh order
+BATCH_AXES = ("pod", "data")
+
+
+class PartitionSpec(tuple):
+    """A partition spec: per tensor dim ``None``, a mesh axis name or a
+    tuple of names, trailing ``None``s trimmed (``jax.sharding.
+    PartitionSpec``'s meaning)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def mesh_shape(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or of any object whose
+    ``shape`` is such a mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    rules: LogicalRules
+
+    def spec_for(self, logical_axes: Sequence[str | None],
+                 shape: Sequence[int], mesh) -> PartitionSpec:
+        """The spec of a tensor, dropping non-dividing, missing or
+        already used mesh axes."""
+        sizes = mesh_shape(mesh)
+        used: set[str] = set()
+        out = []
+        for dim, name in zip(shape, logical_axes):
+            mesh_axes = self.rules.get(name) if name is not None else None
+            if mesh_axes is None:
+                out.append(None)
+                continue
+            if isinstance(mesh_axes, str):
+                mesh_axes = (mesh_axes,)
+            # keep only axes present in the mesh, unused so far, and dividing
+            picked = []
+            size = 1
+            for ax in mesh_axes:
+                if ax in sizes and ax not in used:
+                    if int(dim) % (size * sizes[ax]) == 0:
+                        picked.append(ax)
+                        size *= sizes[ax]
+            used.update(picked)
+            if not picked:
+                out.append(None)
+            elif len(picked) == 1:
+                out.append(picked[0])
+            else:
+                out.append(tuple(picked))
+        while out and out[-1] is None:
+            out.pop()
+        return PartitionSpec(*out)
+
+    def placements_for(self, logical_axes, shape, device_mesh) -> list:
+        return placements_for(self.spec_for(logical_axes, shape,
+                                            device_mesh), device_mesh)
+
+
+def placements_for(spec: Sequence, device_mesh) -> list:
+    """DTensor placements of ``spec`` on ``device_mesh``.  A mesh dim of
+    size 1 holds the whole tensor either way and stays ``Replicate()``,
+    which spares a gather over one rank at every read."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(device_mesh.mesh_dim_names)
+    sizes = mesh_shape(device_mesh)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for ax in (entry if isinstance(entry, tuple) else (entry,)):
+            if sizes[ax] > 1:
+                out[names.index(ax)] = Shard(d)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Name-based logical-axes resolution for the port's trees.
+#
+# Parameter names are globally meaningful; this table is the single source
+# of truth for how each weight shards.  Disambiguation uses the parent key
+# ("mixer"/"mlp"/"cross") and the rank (MoE weights are 3-D).
+# ---------------------------------------------------------------------------
+
+_NAME_AXES = {
+    "embedding": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"),
+    "pos_embedding": ("pos", "embed"),
+    "enc_pos": ("pos", "embed"),
+    "wq": ("embed", "heads", "head_dim"),
+    "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"),
+    "bq": ("heads", "head_dim"),
+    "bk": ("kv_heads", "head_dim"),
+    "bv": ("kv_heads", "head_dim"),
+    "q_norm": ("norm",),
+    "k_norm": ("norm",),
+    "router": ("embed", "experts"),
+    "wz": ("embed", "ssm_inner"),
+    "wx": ("embed", "ssm_inner"),
+    "wB": ("embed", "ssm_state"),
+    "wC": ("embed", "ssm_state"),
+    "wdt": ("embed", "ssm_heads"),
+    "conv_x": ("conv_kernel", "ssm_inner"),
+    "conv_B": ("conv_kernel", "ssm_state"),
+    "conv_C": ("conv_kernel", "ssm_state"),
+    "A_log": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",),
+}
+
+# per-layer parents: the reference's stack keys ("blocks"/"encoder"/
+# "decoder") become these, each followed by the layer index
+_LAYER_KEYS = ("layers", "encoder", "decoder")
+
+_CACHE_AXES = {
+    "k": (None, "batch", "cache_seq", "kv_heads", "head_dim"),
+    "v": (None, "batch", "cache_seq", "kv_heads", "head_dim"),
+    "cross_k": (None, "batch", "cache_seq", "kv_heads", "head_dim"),
+    "cross_v": (None, "batch", "cache_seq", "kv_heads", "head_dim"),
+    "pos": (None, None),
+    "conv": (None, "batch", None, "ssm_inner"),
+    "ssm": (None, "batch", "ssm_heads", None, None),
+}
+
+
+def _keys(path) -> list[str]:
+    if isinstance(path, str):
+        return path.split(".")
+    return [str(k) for k in path]
+
+
+def _is_vector_param(name: str) -> bool:
+    """A parameter that is 1-D in the port (a norm scale or a per-head
+    vector): Adafactor shares one column factor ``vc`` of its full length
+    over its layers."""
+    axes = _NAME_AXES.get(name)
+    return (len(axes) == 1) if axes else "norm" in name
+
+
+def resolve_axes(path, ndim: int) -> tuple:
+    """Logical axes of the leaf at ``path`` (a dotted name or a sequence of
+    keys) with ``ndim`` dims."""
+    keys = _keys(path)
+    name = keys[-1]
+    parents = keys[:-1]
+
+    # KV/SSM cache leaves (decode path)
+    if name in _CACHE_AXES and len(_CACHE_AXES[name]) == ndim and \
+            not any(k in _LAYER_KEYS for k in parents):
+        return _CACHE_AXES[name]
+    # Adafactor factored second moments inherit the parent param's axes
+    if name == "vr":
+        return resolve_axes(parents, ndim + 1)[:-1]
+    if name == "vc":
+        if _is_vector_param(parents[-1]):   # a vector's shared column factor
+            return resolve_axes(parents, ndim)[-1:]
+        full = resolve_axes(parents, ndim + 1)
+        return full[:-2] + full[-1:]
+    if name in ("v", "m", "ef") and parents and \
+            parents[-1] not in _LAYER_KEYS:
+        # per-param optimizer state dicts ({name: {"v"}}); AdamW's
+        # {"m": {name: ...}} paths end with the param name instead.
+        if parents[-1] in _NAME_AXES or parents[-1] in (
+                "wo", "wi", "wi_gate", "norm") or "norm" in parents[-1]:
+            return resolve_axes(parents, ndim)
+
+    if name in _NAME_AXES:
+        axes = _NAME_AXES[name]
+    elif name == "wo":
+        if ndim == 3 and "mlp" in parents:
+            axes = ("experts", "mlp", "embed")        # MoE down-proj
+        elif ndim == 3:
+            axes = ("heads", "head_dim", "embed")     # attention out-proj
+        elif "mixer" in parents:
+            axes = ("ssm_inner", "embed")             # SSD out-proj
+        else:
+            axes = ("mlp", "embed")                   # dense MLP down-proj
+    elif name in ("wi", "wi_gate"):
+        axes = (("experts", "embed", "mlp") if ndim == 3
+                else ("embed", "mlp"))
+    elif name == "norm" and "mixer" in parents:
+        axes = ("ssm_inner",)                         # SSD gated-norm scale
+    elif "norm" in name:
+        axes = ("norm",)
+    else:
+        axes = (None,) * ndim
+    if len(axes) != ndim:
+        raise ValueError(f"{'.'.join(keys)}: axes {axes} for {ndim} dims")
+    return tuple(axes)
+
+
+# ---------------------------------------------------------------------------
+# Trees: dicts, lists and tuples of tensors, addressed by dotted paths
+# ---------------------------------------------------------------------------
+
+
+def tree_items(tree, prefix: str = ""):
+    """``(dotted path, leaf)`` for every tensor of ``tree``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``tree`` with every leaf replaced by ``fn(dotted path, leaf)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}.")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}{i}.")
+                          for i, v in enumerate(tree))
+    return fn(prefix[:-1], tree)
+
+
+def tree_logical_axes(tree) -> Any:
+    """The resolved logical-axes tree (for tests and debugging)."""
+    return tree_map_with_path(lambda p, x: resolve_axes(p, x.dim()), tree)
+
+
+def tree_shardings(rules: ShardingRules, tree, device_mesh) -> Any:
+    """The DTensor placements of every leaf on ``device_mesh``."""
+    return tree_map_with_path(
+        lambda p, x: rules.placements_for(resolve_axes(p, x.dim()), x.shape,
+                                          device_mesh), tree)
+
+
+def shard_tree(tree, rules: ShardingRules, device_mesh) -> Any:
+    """``tree`` as DTensors in the rules' layout.  Every rank holds the
+    same whole tensors (weights drawn from one seed, zero states) and keeps
+    its own shard of each; no data moves."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(path, x):
+        placements = rules.placements_for(resolve_axes(path, x.dim()),
+                                          x.shape, device_mesh)
+        return distribute_tensor(x.detach(), device_mesh, placements,
+                                 src_data_rank=None)
+    return tree_map_with_path(put, tree)
+
+
+def local_bytes(tree) -> int:
+    """Bytes of this rank's shards of a tree of DTensors (plain tensors
+    count whole)."""
+    total = 0
+    for _, x in tree_items(tree):
+        local = x.to_local() if is_dtensor(x) else x
+        total += local.numel() * local.element_size()
+    return total
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def logical_constraint(rules: ShardingRules, x, logical_axes):
+    """A DTensor redistributed to the rules' layout for ``logical_axes``;
+    a plain tensor unchanged (as the reference's is a no-op outside a
+    mesh)."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    return x.redistribute(mesh, rules.placements_for(logical_axes, x.shape,
+                                                     mesh))
+
+
+# ---------------------------------------------------------------------------
+# Compute on gathered weights
+# ---------------------------------------------------------------------------
+
+
+def gather_whole(x, grad_placements):
+    """A DTensor gathered whole (all-gather over the mesh dims it is
+    sharded on) into a plain tensor whose gradient flows back as
+    ``grad_placements`` (partial sums over the batch axes), so autograd
+    reduce-scatters it into ``x``'s own layout.  A plain tensor passes."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return whole.to_local(grad_placements=grad_placements)
+
+
+def batch_placements(device_mesh) -> list:
+    """``Partial()`` on the batch dims of the mesh (gradients of a local
+    batch are partial sums over them), ``Replicate()`` elsewhere (every
+    rank of a ``"model"`` group computes the same rows)."""
+    from torch.distributed.tensor import Partial, Replicate
+    return [Partial() if n in BATCH_AXES else Replicate()
+            for n in device_mesh.mesh_dim_names]
+
+
+_GATHERING: dict = {}
+
+
+def _gathering_class(cls, leaves: tuple):
+    """A subclass of ``cls`` whose attributes ``leaves`` read the bound
+    tensors through :func:`gather_whole` (plain properties: no module is
+    called, so module hooks such as ``CommDebugMode``'s see nothing)."""
+    key = (cls, leaves)
+    if key not in _GATHERING:
+        def prop(leaf):
+            return property(lambda self: gather_whole(
+                self._bound[leaf], self._grad_placements))
+        _GATHERING[key] = type(f"Gathering{cls.__name__}", (cls,),
+                               {leaf: prop(leaf) for leaf in leaves})
+    return _GATHERING[key]
+
+
+def gather_on_use(model: torch.nn.Module, device_mesh) -> dict:
+    """Make every parameter of ``model`` (a skeleton, e.g. on ``meta``)
+    read a bound DTensor gathered whole on each access.  Returns the slots
+    ``{name: (module, leaf)}`` for :func:`bind`.  The model's code, custom
+    ops and kernels then run on plain tensors as they do unsharded; under
+    remat the gather runs again in the recomputation."""
+    grad_pl = batch_placements(device_mesh)
+    slots = {}
+    for mod_name, mod in list(model.named_modules()):
+        leaves = tuple(mod._parameters)
+        if not leaves:
+            continue
+        mod._bound = dict(mod._parameters)
+        mod._grad_placements = grad_pl
+        for leaf in leaves:
+            del mod._parameters[leaf]
+            slots[f"{mod_name}.{leaf}" if mod_name else leaf] = (mod, leaf)
+        mod.__class__ = _gathering_class(type(mod), leaves)
+    return slots
+
+
+def bind(slots: dict, params: dict):
+    """Point each slot of :func:`gather_on_use` at ``params[name]``."""
+    if slots.keys() != params.keys():
+        raise ValueError(f"parameters {sorted(set(slots) ^ set(params))} "
+                         f"differ from the model's")
+    for name, (mod, leaf) in slots.items():
+        mod._bound[leaf] = params[name]
+
+
+def batch_coordinate(device_mesh) -> tuple[int, int]:
+    """(this rank's index, the count) of batch shards: pod-major over the
+    mesh's batch dims; ranks of one ``"model"`` group share an index."""
+    coord = device_mesh.get_coordinate()
+    idx, n = 0, 1
+    for d, name in enumerate(device_mesh.mesh_dim_names):
+        if name in BATCH_AXES:
+            size = device_mesh.size(d)
+            idx, n = idx * size + coord[d], n * size
+    return idx, n
+
+
+def batch_shard(batch: dict, device_mesh) -> dict:
+    """This rank's rows of a global batch (a dict of tensors or arrays
+    with the batch leading); 0-d entries pass whole, and so does a batch
+    the shards do not divide (the rules' divisibility fallback: every
+    shard computes it)."""
+    idx, n = batch_coordinate(device_mesh)
+
+    def rows(x):
+        if x.ndim == 0 or x.shape[0] % n:
+            return x
+        per = x.shape[0] // n
+        return x[idx * per:(idx + 1) * per]
+    return {k: rows(x) for k, x in batch.items()}
+
+
+def all_reduce_over(x: torch.Tensor, device_mesh, names) -> torch.Tensor:
+    """``x`` summed over the mesh dims in ``names`` (one functional
+    all-reduce per dim of size > 1, so ``CommDebugMode`` sees each)."""
+    from torch.distributed import _functional_collectives as funcol
+    for d, name in enumerate(device_mesh.mesh_dim_names):
+        if name in names and device_mesh.size(d) > 1:
+            x = funcol.all_reduce(x, "sum", (device_mesh, d))
+    return x

@@ -9,10 +9,35 @@ tensors, which the optimizer updates in place.  Gradients come from
 independently of the global batch.  Nothing in a step reads a value on
 the host: the loss, the norm and the metrics stay on the device.
 
-The reference's sharding hook has nothing to do on one card:
-:func:`constrain_like_params` returns its tree as it is, so
-``rcfg.shard_grads`` changes nothing.  The explicit data-parallel step
-with int8 gradient compression is :mod:`repro_torch.train.grad_compression`.
+:func:`make_sharded_train_step` is the same step on a ``DeviceMesh``
+(:func:`repro_torch.launch.mesh.make_host_mesh` or
+``make_production_mesh``):
+
+* *storage follows the rules* (:mod:`repro_torch.runtime.sharding`):
+  parameters and optimizer state are DTensors in the rules' layout (FSDP
+  over ``"data"``; heads, mlp, vocab and experts over ``"model"``), and
+  the global batch splits over ``("pod", "data")``;
+* *compute runs on gathered weights*: each weight is gathered whole into a
+  plain tensor where a layer reads it, again in remat's recomputation, and
+  kept for the backward, so the model's modules, custom ops and kernels run
+  as they do unsharded.  The gather's backward reduce-scatters each
+  gradient, summed over the batch axes, into its weight's layout, and the
+  optimizer updates the shards (AdamW touches only local elements;
+  Adafactor's factored means and update clip reduce over the mesh);
+* *the ``"model"`` axis shards storage only*: every rank of a ``"model"``
+  group computes the same rows.  Tensor-parallel compute across it, which
+  the reference gets from XLA's SPMD partitioner, is not ported (ROADMAP).
+
+An MoE layer in ``mode="train"`` sizes its capacity from the tokens it
+sees, so under a data-parallel split each shard drops its own overflow:
+the sharded step's gradients are the mean, over the data shards, of the
+unsharded step's on each shard, where the reference's SPMD step routes the
+global batch in every MoE layer.
+
+:func:`constrain_like_params` pins a gradient tree to the parameters'
+layout when its leaves are DTensors (``rcfg.shard_grads``); on plain
+tensors it is the identity.  The explicit data-parallel step with int8
+gradient compression is :mod:`repro_torch.train.grad_compression`.
 """
 from __future__ import annotations
 
@@ -22,13 +47,20 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import model as M
+from repro_torch.runtime import sharding as shd
 from repro_torch.train.optimizer import Optimizer, make_optimizer
 
+RULES = shd.ShardingRules(shd.TRAIN_RULES)
 
-def constrain_like_params(tree):
-    """Pins a gradient tree to the parameters' sharding in the reference;
-    on one card there is none, so the tree comes back unchanged."""
-    return tree
+
+def constrain_like_params(tree, rules: shd.ShardingRules = RULES):
+    """A gradient or accumulator tree placed like its parameters: each
+    DTensor leaf redistributed to the rules' layout for its name, a plain
+    leaf unchanged."""
+    return shd.tree_map_with_path(
+        lambda path, g: shd.logical_constraint(
+            rules, g, shd.resolve_axes(path, g.dim()))
+        if shd.is_dtensor(g) else g, tree)
 
 
 def global_norm(tree: dict) -> torch.Tensor:
@@ -70,10 +102,12 @@ def grads_fn(cfg: ModelConfig, rcfg: RunConfig, model, batch):
     f32."""
     params = dict(model.named_parameters())
     n = rcfg.microbatches
+    maybe_shard = constrain_like_params if rcfg.shard_grads else (
+        lambda t: t)
     if n <= 1:
         loss, metrics, grads = _value_and_grad(cfg, rcfg, model, params,
                                                batch)
-        return grads, loss, metrics
+        return maybe_shard(grads), loss, metrics
 
     g_acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for k, p in params.items()}
@@ -87,7 +121,7 @@ def grads_fn(cfg: ModelConfig, rcfg: RunConfig, model, batch):
         m_acc = m if m_acc is None else {k: m_acc[k] + m[k] for k in m}
     for a in g_acc.values():
         a.div_(n)
-    return g_acc, l_acc, m_acc
+    return maybe_shard(g_acc), l_acc, m_acc
 
 
 def bind_params(model, params: dict) -> dict:
@@ -125,6 +159,83 @@ def make_train_step(cfg: ModelConfig, rcfg: RunConfig, model,
         params, opt_state = opt.update(grads, opt_state, params, step)
         metrics = dict(metrics)
         metrics.update(loss=loss, grad_norm=gnorm, step=step + 1)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def sharded_model(cfg: ModelConfig, rcfg: RunConfig, mesh):
+    """(model, slots): the model's modules on ``meta`` whose parameters
+    read bound DTensors gathered whole on every access
+    (:func:`repro_torch.runtime.sharding.gather_on_use`)."""
+    model = M.skeleton(cfg, getattr(torch, rcfg.param_dtype))
+    return model, shd.gather_on_use(model, mesh)
+
+
+def sharded_global_norm(tree: dict, mesh) -> torch.Tensor:
+    """The global norm of a tree of DTensors in Shard/Replicate layouts:
+    each rank's sum of squares, each element counted once (divided by the
+    ranks that replicate it), summed over the mesh."""
+    local = None
+    for x in tree.values():
+        reps = 1
+        for d, p in enumerate(x.placements):
+            if p.is_replicate():
+                reps *= mesh.size(d)
+        s = x.to_local().float().square().sum() / reps
+        local = s if local is None else local + s
+    return torch.sqrt(shd.all_reduce_over(local, mesh,
+                                          mesh.mesh_dim_names))
+
+
+def make_sharded_train_step(cfg: ModelConfig, rcfg: RunConfig,
+                            opt: Optimizer | None, mesh,
+                            rules: shd.ShardingRules = RULES):
+    """``train_step(params, opt_state, step, batch) -> (params, opt_state,
+    metrics)`` on ``mesh``: ``params`` and ``opt_state`` are DTensors
+    (:func:`repro_torch.runtime.sharding.shard_tree` with ``rules``),
+    updated in place and returned; ``batch`` is the global batch, the same
+    on every rank, of which each rank computes its rows.  The loss and
+    metrics are means over the batch shards; ``grad_norm`` is the global
+    norm.  Every rank of the mesh calls it (the collectives are the
+    mesh's)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    opt = opt or make_optimizer(rcfg)
+    model, slots = sharded_model(cfg, rcfg, mesh)
+    _, shards = shd.batch_coordinate(mesh)
+    device = torch.device(mesh.device_type)
+    n = max(rcfg.microbatches, 1)
+
+    def train_step(params, opt_state, step, batch):
+        # autograd leaves aliasing the DTensors' shards
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        shd.bind(slots, leaves)
+        local = shd.batch_shard(_on(batch, device), mesh)
+        grads, stats = None, None
+        for mb in (_split_microbatches(local, n) if n > 1 else [local]):
+            loss, metrics = M.loss_fn(cfg, rcfg, model, mb)
+            g = torch.autograd.grad(loss / (shards * n),
+                                    list(leaves.values()),
+                                    allow_unused=True, materialize_grads=True)
+            g = dict(zip(leaves, (a.float() if n > 1 else a for a in g)))
+            grads = g if grads is None else {k: grads[k] + g[k]
+                                             for k in grads}
+            s = torch.stack([loss.detach().float()] + [
+                v.detach().float() for v in metrics.values()]) / n
+            stats = s if stats is None else stats + s
+        shd.bind(slots, params)
+        if rcfg.shard_grads:
+            grads = constrain_like_params(grads, rules)
+        stats = shd.all_reduce_over(stats, mesh, shd.BATCH_AXES) / shards
+        gnorm = sharded_global_norm(grads, mesh)
+        scale = torch.clamp_max(rcfg.grad_clip / gnorm.clamp_min(1e-12), 1.0)
+        for g in grads.values():
+            g.to_local().mul_(scale)
+        with implicit_replication():
+            params, opt_state = opt.update(grads, opt_state, params, step)
+        metrics = dict(zip(metrics, stats[1:]))
+        metrics.update(loss=stats[0], grad_norm=gnorm, step=step + 1)
         return params, opt_state, metrics
 
     return train_step

@@ -153,6 +153,54 @@ def test_grad_step_dot_flops_match_reference():
     assert n_free == 0
 
 
+@pytest.mark.parametrize("b,s,remat", [(2, 16, "full"), (1, 256, "none")],
+                         ids=["one_chunk", "two_chunks"])
+def test_mamba2_step_dot_flops_pinned_to_reference(b, s, remat):
+    """The smoke Mamba2 loss-and-gradient step's dot FLOPs against the
+    reference's, each difference named.  With U = 2·b·nc·h·L²·N (one
+    product of the chunked SSD) and V = 2·b·nc·L·h·N:
+
+    * 2V at any length: the backward of the three-operand einsums (chunk
+      states, inter-chunk output) towards their element-wise operand is a
+      contracting ``dot_general`` in JAX and a mul and a sum in torch;
+    * 3U more at one chunk (S <= 128): the chunk states and the
+      inter-chunk term's state operand do not reach the loss there (the
+      initial state is zero, the final one only fills the cache), so
+      autograd skips their three backward products, where the reference's
+      scan transposes zero cotangents."""
+    name = "mamba2-780m"
+    jcfg, cfg, params, model = _models(name)
+    jr = JRunConfig(model=jcfg, shape=JShapeConfig("t", s, b, "train"),
+                    compute_dtype="float32", remat=remat)
+    tr = RunConfig(model=cfg, shape=ShapeConfig("t", s, b, "train"),
+                   compute_dtype="float32", remat=remat)
+    rng = np.random.default_rng(1)
+    toks, labels = (rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+                    for _ in range(2))
+
+    def port():
+        model.zero_grad(set_to_none=True)
+        loss, _ = M.loss_fn(cfg, tr, model,
+                            {"tokens": torch.from_numpy(toks),
+                             "labels": torch.from_numpy(labels)})
+        loss.backward()
+        return loss
+
+    fn = jax.value_and_grad(lambda p, bt: JM.loss_fn(jcfg, jr, p, bt)[0])
+    args = (params, {"tokens": jnp.asarray(toks),
+                     "labels": jnp.asarray(labels)})
+    ref = JF.cost_of(fn, *args).dot_flops - _contraction_free_dots(fn, *args)
+    L = min(128, s)
+    nc, h, n = s // L, cfg.ssm_heads, cfg.ssm_state
+    U = 2 * b * nc * h * L * L * n
+    V = 2 * b * nc * L * h * n
+    gap = 2 * V + (3 * U if nc == 1 else 0)
+    got = cost_of(port).dot_flops
+    print(f"{name} {b} x {s} step: port {got:.0f}, reference {ref:.0f}, "
+          f"gap {ref - got:.0f} = {'3U + ' if nc == 1 else ''}2V")
+    assert got == ref - cfg.num_layers * gap
+
+
 def test_every_cost_class_counts_exactly():
     a = torch.arange(32, dtype=torch.float32).reshape(4, 8)
     b = torch.ones(8, 3)

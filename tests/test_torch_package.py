@@ -69,7 +69,11 @@ def test_port_imports_without_jax_or_reference():
                      "repro_torch.analysis.keyspace",
                      "repro_torch.analysis.waverace",
                      "repro_torch.analysis.lint",
-                     "repro_torch.runtime.flops"):
+                     "repro_torch.runtime.flops",
+                     "repro_torch.runtime.sharding",
+                     "repro_torch.train.pipeline",
+                     "repro_torch.launch.dryrun",
+                     "repro_torch.launch.roofline"):
             assert name in names, name
         print(len(names))
     """)
@@ -115,6 +119,7 @@ def _entry_points():
     from repro_torch.moe import shmap_moe
     from repro_torch.train import train_step
     from repro_torch.analysis import lint
+    from repro_torch.train import pipeline
     edges = np.array([0, 1]), np.array([1, 2])
     cfg = smoke_model(ARCHS["mamba2-780m"])
     rcfg = RunConfig(model=cfg, shape=ShapeConfig("t", 4, 1, "decode"))
@@ -152,10 +157,16 @@ def _entry_points():
         lambda: TokenStream(cfg, rcfg.shape).tensors(0),
         lambda: shmap_moe.make_expert_mesh(1, 1),
         lambda: lint.main([]),
+        lambda: mesh.make_production_mesh(),
+        lambda: mesh.make_host_mesh(),
+        lambda: pipeline.pipeline_forward(
+            cfg, rcfg, mesh.make_host_mesh(), "data", 1),
+        lambda: train_step.make_sharded_train_step(
+            cfg, rcfg, None, mesh.make_host_mesh(), train_step.RULES),
     ] + _tuner_calls()
 
 
-@pytest.mark.parametrize("i", range(29))
+@pytest.mark.parametrize("i", range(33))
 def test_entry_points_default_to_cuda(i):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
