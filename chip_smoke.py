@@ -157,32 +157,49 @@ Phases, one or more lines each:
    and inside phase 11; a, b and e after phase 12.
 14. the parallel layouts and the dry run, after phase 13: (a)
    ``make_sharded_train_step`` on a one-rank NCCL group
-   (``make_host_mesh(1, 1)``), phi3.5-moe at its published width, phase
-   12a's 2 layers, f32, remat full, 2 AdamW steps on 4 x 2048, parameters
-   and AdamW state as DTensors, against ``make_train_step`` from the same
-   seed (run in turn; parameters within 1e-6), ms a step and peak memory
-   of both; (b) ``pipeline_forward`` on 2 gloo ranks both on ``cuda:0``
-   (spawned; boundary tensors through host memory), phi3.5-moe at its
-   published width, 2 stages of 1 block, 2 microbatches of 1 x 2048, f32:
-   the logits against each microbatch's plain forward (1e-5) and the
+   (``make_host_mesh(1, 1)``: the tensor-parallel step on a model axis of
+   one), phi3.5-moe at its published width, phase 12a's 2 layers, f32,
+   remat full, 2 AdamW steps on 4 x 2048, parameters and AdamW state as
+   DTensors, against ``make_train_step`` from the same seed (run in turn;
+   parameters within 1e-6), ms a step and peak memory of both; (b)
+   ``pipeline_forward`` on 2 gloo ranks both on ``cuda:0`` (spawned;
+   boundary tensors through host memory), phi3.5-moe at its published
+   width, 2 stages of 1 block, 2 microbatches of 1 x 2048, f32: the
+   logits against each microbatch's plain forward (1e-5) and the
    gradients of a cross entropy against the plain forward's (1e-4), each
    stage's ms, the bytes crossing the boundary, peak memory; (c) the dry
-   run on the host (``build_cell`` on qwen2-1.5b x train_4k, prefill_32k,
-   decode_32k on 16 x 16 and phi3.5-moe x train_4k on 2 x 16 x 16, fake
-   tensors, a ``fake`` process group) and the roofline rows, host
-   seconds and collective totals.
+   run (``python -m repro_torch.launch.dryrun``, one process a cell,
+   started in the background after phase 2 and read after phase
+   15: qwen2-1.5b x train_4k, prefill_32k, decode_32k on 16 x 16 and
+   phi3.5-moe x train_4k on 2 x 16 x 16, fake tensors, a ``fake`` process
+   group) and the roofline rows, host seconds and collective totals;
+15. tensor-parallel compute over ``"model"``, after phase 14, on two
+   gloo ranks sharing ``cuda:0`` as a ``(data 1, model 2)`` mesh
+   (spawned; collectives through host memory): (a) phase 14a's phi3.5
+   step computed on each rank's shards (16 of 32 heads, 8 of 16 experts,
+   half the vocab; the router read whole), 2 AdamW steps, against 14a's
+   unsharded run (losses and gradient norms within rtol 1e-5, every
+   parameter within 1e-5), the step's all-gathers only routers, the
+   count kernel's launches on each rank; (b) mamba2-780m whole, f32, a
+   prefill of 2 x 2048 with the SSD kernel on each rank's 24 of 48 heads,
+   logits and SSM states within 1e-4 of the largest against the
+   one-process prefill; (c) the dry run's train_4k cells of qwen2-1.5b,
+   mamba2-780m, phi3.5-moe and jamba on 16 x 16, priced on the
+   tensor-parallel step (collective and compute seconds a device).
 
-Phases 4, 6, 8, 9, 10, 7, 11, 12, 13 and 14 (run in that order) are the main
-path: each zeroes the kernels' launch counters before it (each part of
-phase 13 before it) and reads them after, and fails if a kernel of its
-path was not launched (phase 6: the
+Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14 and 15 (run in that order) are
+the main path: each zeroes the kernels' launch counters before it (each
+part of phase 13 before it) and reads them after, and fails if a kernel
+of its path was not launched (phase 6: the
 bucket count, and the fused kernel with 4 lanes; phases 8 and 10: both
 commit kernels and the bucket count; phase 9: a commit kernel and the
 bucket count; phase 7: the SSD kernel once per layer; phase 11: the
 bucket count once per MoE layer per forward of its ``generate()``; phase
 12a: the bucket count exactly as remat implies; phase 13: all four;
 phase 14: the bucket count as remat implies, in the sharded steps and in
-each pipeline stage, whose counters its processes report).
+each pipeline stage, whose counters its processes report; phase 15: the
+bucket count as remat implies on each rank's steps, the SSD kernel once
+per layer on each rank's prefill).
 Every wrapper launches its kernel through a dispatched op
 (``torch.ops.repro_torch.*``), so the call ms below include the op's
 dispatch.  Then one
@@ -197,8 +214,10 @@ checkout's ``src/``; it imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -3200,9 +3219,12 @@ def _phi_train_cfg():
 
 def phase14_sharded(device):
     """Phase 14a: ``make_sharded_train_step`` on a one-rank NCCL group
-    (``make_host_mesh(1, 1)``), parameters and AdamW state as DTensors,
-    against ``make_train_step`` from the same seed, the two run in turn.
-    Returns the bucket-count launches of the sharded steps."""
+    (``make_host_mesh(1, 1)``: the tensor-parallel step on a model axis of
+    one), parameters and AdamW state as DTensors, against
+    ``make_train_step`` from the same seed, the two run in turn.  Returns
+    the bucket-count launches of the sharded steps and the unsharded
+    run's parameters (on the host), losses and gradient norms, phase
+    15a's oracle."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -3231,12 +3253,13 @@ def phase14_sharded(device):
             step = make_train_step(cfg, rcfg, model, opt)
         torch.cuda.synchronize()
         bucket_count_kernel.launches = 0
-        ms, losses = [], []
+        ms, losses, gnorms = [], [], []
         for i, batch in enumerate(batches):
             (params, opt_state, m), sec = timed(
                 lambda: step(params, opt_state, i, batch))
             ms.append(sec * 1e3)
             losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
         kinds = {type(v) is DTensor for v in params.values()} | {
             type(v) is DTensor for _, v in shd.tree_items(opt_state)}
         out = {k: (v.to_local() if sharded else v).detach().cpu()
@@ -3245,17 +3268,17 @@ def phase14_sharded(device):
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         del params, opt_state, step
         torch.cuda.empty_cache()
-        return out, ms, losses, launches, kinds, peak
+        return out, ms, losses, launches, kinds, peak, gnorms
 
     torch.cuda.reset_peak_memory_stats()
-    want, ms0, l0, launches0, _, peak0 = run(False)
+    want, ms0, l0, launches0, _, peak0, g0 = run(False)
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{_free_port()}", world_size=1, rank=0,
                             device_id=torch.device("cuda", 0))
     try:
         mesh = make_host_mesh(1, 1)
         torch.cuda.reset_peak_memory_stats()
-        got, ms1, l1, launches, kinds, peak1 = run(True)
+        got, ms1, l1, launches, kinds, peak1, _ = run(True)
     finally:
         dist.destroy_process_group()
     err = max(float((got[k] - w).abs().max()) for k, w in want.items())
@@ -3278,7 +3301,8 @@ def phase14_sharded(device):
     if not (kinds == {True} and err <= SHARD_ATOL and launches == expected
             and all(math.isfinite(x) for x in l1)):
         raise AssertionError("phase 14a: sharded step vs unsharded")
-    return launches
+    return launches, {"params": want, "losses": l0, "grad_norms": g0,
+                      "ms": ms0, "peak": peak0}
 
 
 def _phase14_rank(rank, world, port, out_path):
@@ -3443,50 +3467,512 @@ def phase14_pipeline(device):
     return launches
 
 
-def phase14_dryrun():
-    """Phase 14c: ``build_cell`` on the dry-run cells, then the roofline
-    over their records; on the host, with fake tensors."""
+def start_dryrun(cells, out):
+    """One ``python -m repro_torch.launch.dryrun`` process a cell, all
+    started at once at the lowest priority (host work on fake tensors,
+    beside the card's phases, on the cores this process leaves idle);
+    ``finish_dryrun`` waits for them."""
+    import os
     import shutil
-    from repro_torch.launch import dryrun as D
-    from repro_torch.launch import roofline as R
-    out = ROOT / "build" / "phase14_dryrun"
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
-    for arch, shape, multi_pod in DRYRUN_CELLS:
-        t0 = time.perf_counter()
-        rec = D.build_cell(arch, shape, multi_pod)
-        rec["tag"] = ""
-        (out / f"{arch}__{shape}__{rec['mesh']}.json").write_text(
-            json.dumps(rec, indent=1))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi_pod in cells:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        log = open(out / f"{arch}__{shape}__{int(multi_pod)}.log", "w")
+        procs.append((arch, shape, multi_pod,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT, env=env,
+                                       preexec_fn=lambda: os.nice(19)),
+                      log))
+    return procs
+
+
+def finish_dryrun(procs, timeout_s):
+    """Wait for the dry-run processes (killing any left at
+    ``timeout_s``)."""
+    t_end = time.perf_counter() + timeout_s
+    try:
+        for arch, shape, multi_pod, proc, log in procs:
+            proc.wait(timeout=max(t_end - time.perf_counter(), 1))
+            log.close()
+            if proc.returncode:
+                raise AssertionError(f"dry run {arch} x {shape} exited "
+                                     f"{proc.returncode}: "
+                                     f"{pathlib.Path(log.name).read_text()}")
+    finally:
+        stop_dryrun(procs)
+
+
+def stop_dryrun(procs):
+    """Kill the dry-run processes still running."""
+    for *_, proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(10)
+        log.close()
+
+
+def dryrun_rows(label, cells, out):
+    """Print each cell's record and its roofline row; returns the rows."""
+    from repro_torch.launch import roofline as R
+    rows = []
+    for arch, shape, multi_pod in cells:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        path = out / f"{arch}__{shape}__{mesh}.json"
+        if not path.exists():
+            raise AssertionError(f"{label}: no dry-run record {path.name}")
+        rec = json.loads(path.read_text())
+        rows.append(rec)
         tot = rec["collectives"]["totals"]
-        say(f"phase 14c: {arch} x {shape} on {rec['mesh']}: host s "
-            f"{time.perf_counter() - t0:.1f} (op_cost "
+        t = R.terms(rec)
+        say(f"{label}: {arch} x {shape} on {rec['mesh']}: host s op_cost "
             f"{rec['host_s']['op_cost']:.1f}, sharded run "
-            f"{rec['host_s']['sharded_run']:.1f}); state "
+            f"{rec['host_s']['sharded_run']:.1f} (at the lowest priority); "
+            f"state "
             f"{rec['state_bytes_per_device'] / 2 ** 30:.3f} GiB a device; "
             f"op flops {rec['op_cost']['flops']:.4e}, dot "
             f"{rec['op_cost']['dot_flops']:.4e}, bytes "
-            f"{rec['op_cost']['bytes_unfused']:.4e}; collectives "
+            f"{rec['op_cost']['bytes_unfused']:.4e}; rank 0 flops "
+            f"{rec['device_cost']['flops']:.4e}; collectives "
             f"{tot['count']}, result {tot['result_bytes']} B, wire "
             f"{tot['wire_bytes']} B a device "
-            f"({rec['collectives']['comm_debug_counts']})")
-    rows = R.load(str(out))
+            f"({rec['collectives']['comm_debug_counts']}); compute s a "
+            f"device {t['t_compute_device']:.4f} (global/chips "
+            f"{t['t_compute']:.4f}), collective s {t['t_coll']:.4f}, "
+            f"{t['dominant']}-bound; {rec['compute_note']}")
     for line in R.to_markdown(rows).splitlines():
-        say(f"phase 14c: {line}")
-    if len(rows) != len(DRYRUN_CELLS):
-        raise AssertionError("phase 14c: a dry-run record is missing")
+        say(f"{label}: {line}")
+    return rows
 
 
 def phase_parallel(device):
-    """Phase 14.  Returns the bucket-count launches of its main path (the
-    sharded steps and the pipelined stages)."""
+    """Phase 14 (its dry-run cells run in the background from phase 3's
+    start and are read after phase 15).  Returns the bucket-count launches of
+    its main path (the sharded steps and the pipelined stages) and phase
+    14a's unsharded run."""
     import torch
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    launches = phase14_sharded(device)
+    launches, unsharded = phase14_sharded(device)
     launches += phase14_pipeline(device)
-    phase14_dryrun()
-    say(f"phase 14: done in {time.perf_counter() - t0:.1f} s; bucket_count "
+    say(f"phase 14: done in {time.perf_counter() - t0:.1f} s (14c's cells "
+        f"are read after phase 15); bucket_count launches {launches}")
+    return launches, unsharded
+
+
+# -- phase 15: tensor-parallel compute over "model" -------------------------
+
+TP_WORLD = 2                       # phase 15: ranks of (data 1, model 2)
+TP_LOSS_RTOL = 1e-5                # phase 15a: the CPU tests' bounds
+TP_PARAM_ATOL = 1e-5               # (tests/test_torch_tp.py)
+TP_PREFILL = (2, 2048)             # phase 15b: mamba2, batch x prompt
+TP_PREFILL_BOUND = 1e-4            # phase 7's bound, of the largest logit
+TP_TIMEOUT_S = 600
+TP_DRYRUN_CELLS = (("qwen2-1.5b", "train_4k", False),
+                   (MAMBA, "train_4k", False),
+                   (PHI, "train_4k", False),
+                   ("jamba-1.5-large-398b", "train_4k", False))
+DRYRUN_TIMEOUT_S = 700
+
+
+def _shard_of(x, whole):
+    """The slice of ``whole`` (the unsharded leaf) that DTensor ``x``'s
+    local shard holds over ``"model"``."""
+    names = list(x.device_mesh.mesh_dim_names)
+    d = names.index("model")
+    pl = x.placements[d]
+    if not pl.is_shard():
+        return whole
+    n = x.to_local().shape[pl.dim]
+    return whole.narrow(pl.dim, x.device_mesh.get_local_rank(d) * n, n)
+
+
+@contextlib.contextmanager
+def moe_routes():
+    """The experts [T, k] (on the host) each MoE layer's router picks
+    under autograd, in call order, while the context is open."""
+    import torch
+    from repro_torch.moe import moe_layer
+    seen, route = [], moe_layer._route
+
+    def recorded(cfg, p, x):
+        w, e, probs = route(cfg, p, x)
+        if torch.is_grad_enabled():
+            seen.append(e.detach().cpu())
+        return w, e, probs
+    moe_layer._route = recorded
+    try:
+        yield seen
+    finally:
+        moe_layer._route = route
+
+
+def _adamw_leaf(rcfg, p, g, scale, step=0):
+    """``p`` after the plain AdamW update of ``make_train_step``'s first
+    step on gradient ``g`` clipped by ``scale`` (elementwise, so a shard's
+    update is its slice of the whole one)."""
+    import torch
+    from repro_torch.train.optimizer import adamw
+    p = p.clone()
+    zeros = {s: {"x": torch.zeros_like(p, dtype=torch.float32)}
+             for s in ("m", "v")}
+    adamw(rcfg).update({"x": g.float() * scale}, zeros, {"x": p}, step)
+    return p
+
+
+def _phase15a(mesh, device, out_dir):
+    """This rank's part of phase 15a: phi3.5 at full width (14a's config)
+    on its ``"model"`` shards: the gradients of batch 0 against the
+    unsharded ones, then 2 tensor-parallel AdamW steps against 14a's
+    unsharded run."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.launch.dryrun import _collective_log_class
+    from repro_torch.models import model as M
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (RULES, make_sharded_grads,
+                                              make_sharded_train_step,
+                                              sharded_global_norm)
+    cfg, rcfg = _phi_train_cfg()
+    opt = make_optimizer(rcfg)
+    model = M.init(cfg, SEED, getattr(torch, rcfg.param_dtype),
+                   device=device)
+    params = shd.shard_tree(dict(model.named_parameters()), RULES, mesh)
+    del model                      # the sharded leaves own their chunks
+    torch.cuda.empty_cache()
+    stream = TokenStream(cfg, rcfg.shape, seed=0)
+    batches = [stream.tensors(i, device=device) for i in range(SHARD_STEPS)]
+    out = {}
+
+    # (1) batch 0's gradients against the unsharded ones, leaf by leaf,
+    # and the routing; then the first update the step should make of them
+    with moe_routes() as routes:
+        grads, _, _ = make_sharded_grads(cfg, rcfg, mesh)(params, batches[0])
+    want = torch.load(out_dir / "oracle15a_grads.pt", mmap=True)
+    ref = torch.load(out_dir / "oracle15a_ref.pt")
+    g_err = g_over = 0
+    for k, g in grads.items():
+        w = _shard_of(g, want[k]).to(device)
+        d = (g.to_local() - w).abs()
+        g_err = max(g_err, float(d.max()))
+        g_over += int((d > GRAD_ATOL + GRAD_RTOL * w.abs()).sum())
+    out["grad_err"], out["grad_over"] = g_err, g_over
+    out["route_diff"] = [int((a != b).sum()) for a, b in
+                         zip(routes, ref["routes"])]
+    gnorm = sharded_global_norm(grads, mesh)
+    scale = torch.clamp_max(rcfg.grad_clip / gnorm.clamp_min(1e-12), 1.0)
+    p0 = {k: p.to_local().to("cpu", copy=True) for k, p in params.items()}
+    expect = {k: _adamw_leaf(rcfg, p0[k].to(device), g.to_local(),
+                             scale).cpu() for k, g in grads.items()}
+    del grads, want
+    torch.cuda.empty_cache()
+
+    # (2) the tensor-parallel step, twice
+    opt_state = {s: {k: DTensor.from_local(
+        torch.zeros_like(p.to_local(), dtype=torch.float32), mesh,
+        p.placements, run_check=False, shape=p.shape, stride=p.stride())
+        for k, p in params.items()} for s in ("m", "v")}
+    step = make_sharded_train_step(cfg, rcfg, opt, mesh, RULES)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    bucket_count_kernel.launches = 0
+    ms, losses, gnorms = [], [], []
+    for i, batch in enumerate(batches):
+        log = _collective_log_class()()
+        with log:
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, i, batch)
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if i == 0:        # the first update: of its own and of the
+            #               unsharded gradients
+            own = oracle = 0.0
+            g_ref = torch.load(out_dir / "oracle15a_grads.pt", mmap=True)
+            for k, p in params.items():
+                got = p.to_local()
+                own = max(own, float((got - expect[k].to(device)).abs()
+                                     .max()))
+                w = _adamw_leaf(rcfg, p0[k].to(device), _shard_of(
+                    p, g_ref[k]).to(device), ref["scale"])
+                oracle = max(oracle, float((got - w).abs().max()))
+            out["step1_own"], out["step1_oracle"] = own, oracle
+            del p0, expect, g_ref
+    out["launches"] = bucket_count_kernel.launches
+    out["counts"] = {str(k): v for k, v in log.get_comm_counts().items()}
+    out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = torch.load(out_dir / "oracle15a.pt", mmap=True)
+    err, over, sharded = 0.0, 0, 0
+    for k, p in params.items():
+        w = _shard_of(p, want[k])
+        d = (p.to_local() - w.to(device)).abs()
+        err = max(err, float(d.max()))
+        over += int((d > TP_PARAM_ATOL).sum())
+        sharded += w is not want[k]
+    out.update(ms=ms, losses=losses, grad_norms=gnorms, param_err=err,
+               param_over=over, sharded=sharded, leaves=len(params),
+               elements=sum(p.numel() for p in params.values()))
+    return out
+
+
+def _phase15b(mesh, device, out_dir):
+    """This rank's part of phase 15b: mamba2-780m's prefill on its 24 of
+    48 SSM heads, against the one-process prefill."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.train.train_step import sharded_model
+    cfg = ARCHS[MAMBA]
+    rcfg = _tp_prefill_rcfg(cfg)
+    model = M.init(cfg, SEED, device=device)
+    params = shd.shard_tree(dict(model.named_parameters()),
+                            shd.ShardingRules(shd.SERVE_TP_RULES), mesh)
+    del model
+    torch.cuda.empty_cache()
+    tp, slots = sharded_model(cfg, rcfg)
+    shd.bind(slots, params)
+    seen = []
+
+    def record(*args):
+        seen.append(args[0].shape[0])
+        return ssd_chunk_kernel(*args)
+    tokens = _tp_prefill_tokens(cfg, device)
+    dist.barrier()
+    torch.cuda.synchronize()
+    ssd_chunk_kernel.launches = 0
+    ssm.ssd_chunk_kernel = record
+    try:
+        (logits, cache), sec = timed(lambda: M.prefill(
+            cfg, rcfg, tp, {"tokens": tokens}))
+    finally:
+        ssm.ssd_chunk_kernel = ssd_chunk_kernel
+    launches = ssd_chunk_kernel.launches
+    want = torch.load(out_dir / "oracle15b.pt")
+    v = cfg.vocab_size
+    d_logits = rel_diff(logits[..., :v], want["logits"][..., :v].to(device))
+    per = cfg.ssm_heads // mesh.size(1)
+    r = mesh.get_local_rank(1)
+    d_state = rel_diff(cache[0]["ssm"], want["ssm"][:, :, r * per:(r + 1)
+                                                     * per].to(device))
+    return {"ms": sec * 1e3, "launches": launches, "grid": seen,
+            "heads": per, "logit_err": d_logits, "state_err": d_state,
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _tp_prefill_rcfg(cfg):
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    b, s = TP_PREFILL
+    return RunConfig(model=cfg, shape=ShapeConfig("prefill", s, b,
+                                                  "prefill"),
+                     compute_dtype="float32", remat="none", use_pallas=True)
+
+
+def _tp_prefill_tokens(cfg, device):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    return torch.randint(0, cfg.vocab_size, TP_PREFILL, generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def _phase15_rank(rank, world, port, out_dir):
+    """Gloo rank ``rank`` of phase 15's ``(1, world)`` mesh on ``cuda:0``;
+    writes its results to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out_dir = pathlib.Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, world)
+        out["a"] = _phase15a(mesh, device, out_dir)
+        torch.cuda.empty_cache()
+        out["b"] = _phase15b(mesh, device, out_dir)
+    except BaseException as e:   # noqa: BLE001 — reported by the parent
+        import traceback
+        out["error"] = "".join(traceback.format_exception(e))
+    finally:
+        dist.destroy_process_group()
+    with open(out_dir / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+
+
+def phase15_oracles(device, unsharded, out_dir):
+    """The one-process results phase 15 holds the ranks to, on disk: 14a's
+    unsharded parameters after its steps; the unsharded gradients of its
+    batch 0 (from the same seed), their clip scale and the routing; and
+    mamba2's f32 prefill (logits, SSM states).  Returns the host seconds
+    of the saves and the one-process prefill's ms."""
+    import torch
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import (clip_by_global_norm,
+                                              grads_fn)
+    t0 = time.perf_counter()
+    torch.save(unsharded.pop("params"), out_dir / "oracle15a.pt")
+    cfg, rcfg = _phi_train_cfg()
+    model = M.init(cfg, SEED, getattr(torch, rcfg.param_dtype),
+                   device=device)
+    batch = TokenStream(cfg, rcfg.shape, seed=0).tensors(0, device=device)
+    with moe_routes() as routes:
+        grads, _, _ = grads_fn(cfg, rcfg, model, batch)
+    grads = {k: g.detach().cpu() for k, g in grads.items()}
+    del model
+    torch.cuda.empty_cache()
+    torch.save(grads, out_dir / "oracle15a_grads.pt")
+    _, gnorm = clip_by_global_norm({k: g.clone() for k, g in grads.items()},
+                                   rcfg.grad_clip)
+    scale = float(torch.clamp_max(rcfg.grad_clip / gnorm.clamp_min(1e-12),
+                                  1.0))
+    torch.save({"routes": routes[:cfg.num_layers], "scale": scale,
+                "grad_norm": float(gnorm)}, out_dir / "oracle15a_ref.pt")
+    del grads
+    t_save = time.perf_counter() - t0
+    mcfg = ARCHS[MAMBA]
+    model = M.init(mcfg, SEED, device=device)
+    (logits, cache), sec = timed(lambda: M.prefill(
+        mcfg, _tp_prefill_rcfg(mcfg), model,
+        {"tokens": _tp_prefill_tokens(mcfg, device)}))
+    torch.save({"logits": logits.cpu(), "ssm": cache[0]["ssm"].cpu()},
+               out_dir / "oracle15b.pt")
+    del model, logits, cache
+    torch.cuda.empty_cache()
+    return t_save, sec * 1e3
+
+
+def phase_tensor_parallel(device, unsharded, dryrun):
+    """Phase 15: tensor-parallel compute over ``"model"`` on two gloo
+    ranks sharing the card ((a) the phi3.5 train step, (b) the mamba2
+    prefill), then the dry-run cells of 14c and 15c.  Returns the
+    bucket-count and SSD launches of the ranks' main path."""
+    import torch
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "phase15"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for p in out_dir.glob("rank*.json"):
+        p.unlink()
+    t_save, ms_one = phase15_oracles(device, unsharded, out_dir)
+    port = _free_port()
+    t0 = time.perf_counter()
+    mpc = mp.get_context("spawn")
+    procs = [mpc.Process(target=_phase15_rank,
+                         args=(r, TP_WORLD, port, str(out_dir)))
+             for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(TP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    paths = [out_dir / f"rank{r}.json" for r in range(TP_WORLD)]
+    if not all(p.exists() for p in paths):
+        raise AssertionError(f"phase 15: a rank wrote no result (exit codes "
+                             f"{[p.exitcode for p in procs]})")
+    ranks = [json.loads(p.read_text()) for p in paths]
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"phase 15: rank {r['rank']}:\n"
+                                 f"{r['error']}")
+    from repro_torch.configs.archs import ARCHS
+    cfg, rcfg = _phi_train_cfg()
+    mamba = ARCHS[MAMBA]
+    b, s = TRAIN_BATCH
+    moe_layers = sum(sp.mlp == "moe" for sp in cfg.full_pattern) \
+        * cfg.num_blocks
+    ok = True
+    for r in ranks:
+        a = r["a"]
+        d_loss = max(abs(x - y) / abs(y) for x, y in
+                     zip(a["losses"], unsharded["losses"]))
+        d_norm = max(abs(x - y) / abs(y) for x, y in
+                     zip(a["grad_norms"], unsharded["grad_norms"]))
+        say(f"phase 15a: rank {r['rank']}: {PHI} at d_model {cfg.d_model}, "
+            f"{cfg.num_layers} layers, f32, remat full, AdamW, {b} x {s} "
+            f"tokens on (data 1, model {TP_WORLD}), {a['sharded']} of "
+            f"{a['leaves']} leaves split over model: batch 0's gradients vs "
+            f"the unsharded ones {a['grad_err']:.3g}, {a['grad_over']} of "
+            f"{a['elements']} elements outside rtol {GRAD_RTOL:g} / atol "
+            f"{GRAD_ATOL:g}; MoE assignments differing {a['route_diff']}; "
+            f"the first step's parameters vs AdamW on its own gradients "
+            f"{a['step1_own']:.3g} (bound {TP_PARAM_ATOL:g}), vs AdamW on "
+            f"the unsharded gradients {a['step1_oracle']:.3g}; "
+            f"{SHARD_STEPS} steps: ms a step "
+            f"{', '.join(f'{x:.1f}' for x in a['ms'])} (unsharded, 14a: "
+            f"{', '.join(f'{x:.1f}' for x in unsharded['ms'])}); losses "
+            f"{', '.join(f'{x:.6f}' for x in a['losses'])} (unsharded "
+            f"{', '.join(f'{x:.6f}' for x in unsharded['losses'])}; rel "
+            f"{d_loss:.3g}, bound {TP_LOSS_RTOL:g}); grad norms "
+            f"{', '.join(f'{x:.6f}' for x in a['grad_norms'])} (rel "
+            f"{d_norm:.3g}); parameters after {SHARD_STEPS} steps vs 14a's "
+            f"{a['param_err']:.3g}, {a['param_over']} elements over "
+            f"{TP_PARAM_ATOL:g}; collectives a step {a['counts']}; peak "
+            f"{a['peak']:.2f} GiB (unsharded {unsharded['peak']:.2f}); "
+            f"bucket_count launches {a['launches']} (2 x {moe_layers} MoE "
+            f"layers x {SHARD_STEPS} steps)")
+        ok &= (d_loss <= TP_LOSS_RTOL and d_norm <= TP_LOSS_RTOL
+               and a["grad_over"] == 0 and a["step1_own"] <= TP_PARAM_ATOL
+               and not any(a["route_diff"]) and a["sharded"] > 0
+               and a["launches"] == 2 * moe_layers * SHARD_STEPS)
+        bb = r["b"]
+        say(f"phase 15b: rank {r['rank']}: {MAMBA} whole, f32, prefill "
+            f"{TP_PREFILL[0]} x {TP_PREFILL[1]} on {bb['heads']} of its SSM "
+            f"heads: {bb['ms']:.1f} ms (one process {ms_one:.1f}); SSD "
+            f"kernel grid G {sorted(set(bb['grid']))} "
+            f"({bb['launches']} launches); logits vs the one-process "
+            f"prefill {bb['logit_err']:.3g} of the largest (bound "
+            f"{TP_PREFILL_BOUND:g}), its SSM states {bb['state_err']:.3g}; "
+            f"peak {bb['peak']:.2f} GiB")
+        cells = TP_PREFILL[0] * (TP_PREFILL[1] // 128) * bb["heads"]
+        ok &= (bb["logit_err"] <= TP_PREFILL_BOUND
+               and bb["state_err"] <= TP_PREFILL_BOUND
+               and set(bb["grid"]) == {cells}
+               and bb["heads"] * TP_WORLD == mamba.ssm_heads
+               and bb["launches"] == mamba.num_layers)
+    say(f"phase 15: the oracles (14a's parameters, batch 0's unsharded "
+        f"gradients) saved in {t_save:.1f} s; "
+        f"gloo moves CUDA tensors through host memory, so these times are "
+        f"not tensor-parallel times on a fabric; ranks "
+        f"{time.perf_counter() - t0:.1f} s with their start")
+    if not ok:
+        raise AssertionError("phase 15: tensor-parallel vs one process")
+    procs, out = dryrun
+    finish_dryrun(procs, DRYRUN_TIMEOUT_S)
+    rows14 = dryrun_rows("phase 14c", DRYRUN_CELLS, out)
+    rows15 = dryrun_rows("phase 15c", TP_DRYRUN_CELLS, out)
+    if len(rows14) != len(DRYRUN_CELLS) or len(rows15) != len(
+            TP_DRYRUN_CELLS):
+        raise AssertionError("phase 14c/15c: a dry-run record is missing")
+    launches = {"bucket_count": sum(r["a"]["launches"] for r in ranks),
+                "ssd_chunk": sum(r["b"]["launches"] for r in ranks)}
+    say(f"phase 15: done in {time.perf_counter() - t_phase:.1f} s; "
         f"launches {launches}")
     return launches
 
@@ -3497,12 +3983,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.graphs.algorithms.bfs import bfs, bfs_reference
-    from repro_torch.graphs.algorithms.pagerank import (pagerank,
-                                                         pagerank_reference)
-    from repro_torch.graphs.generators import kronecker
     from repro_torch.kernels import _build
-    from repro_torch.core.commit import CommitSpec
     device = torch.device("cuda")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3520,6 +4001,24 @@ def main() -> int:
     say(f"phase 2: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas spill lines with loads: "
         f"{len(regs)}")
+    # the dry-run cells of 14c and 15c, on the cores the phases leave idle
+    out = ROOT / "build" / "phase14_dryrun"
+    dryrun = start_dryrun(sorted(set(DRYRUN_CELLS + TP_DRYRUN_CELLS)), out)
+    try:
+        return _phases(device, dryrun, out)
+    finally:
+        stop_dryrun(dryrun)
+
+
+def _phases(device, dryrun, out) -> int:
+    """Phases 3 to 15 and the last two lines, beside the dry-run cells of
+    14c and 15c in the background."""
+    import torch
+    from repro_torch.graphs.algorithms.bfs import bfs, bfs_reference
+    from repro_torch.graphs.algorithms.pagerank import (pagerank,
+                                                         pagerank_reference)
+    from repro_torch.graphs.generators import kronecker
+    from repro_torch.core.commit import CommitSpec
 
     # phase 3's kernels; phase 7 adds the SSD chunk's
     max_err = dict.fromkeys(("coarse_commit", "fused_route_commit",
@@ -3566,7 +4065,10 @@ def main() -> int:
     train_launches = phase_training(device)
     analysis_launches = phase_analysis(device, rounds13, costs13)
     torch.cuda.empty_cache()
-    parallel_launches = phase_parallel(device)
+    parallel_launches, unsharded = phase_parallel(device)
+    tp_launches = phase_tensor_parallel(device, unsharded, (dryrun, out))
+    mamba_launches += tp_launches["ssd_chunk"]
+    parallel_launches += tp_launches["bucket_count"]
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches)) for name in KERNELS}

@@ -17,12 +17,19 @@ this process as rank 0 and destroyed after each cell:
   parameters for prefill, parameters and cache for decode), as the
   reference's ``sharded_bytes``;
 * **collectives**: what DTensor and the sharded run issue on rank 0 —
-  the sharded train step of ``train_step.make_sharded_train_step``, or
-  ``model.prefill`` / ``model.decode_step`` on weights gathered whole
-  and this rank's batch rows (the cache gathered to the batch layout and
-  placed back) — counted by ``CommDebugMode`` with each collective's
-  result bytes and wire bytes per device by the reference's ring
-  formulas.
+  the tensor-parallel train step of
+  ``train_step.make_sharded_train_step``, or ``model.prefill`` /
+  ``model.decode_step`` on this rank's ``"model"`` shards of the weights
+  and its batch rows (the cache redistributed to its batch rows and kv
+  and SSM heads, and placed back) — counted by ``CommDebugMode`` with
+  each collective's result bytes and wire bytes per device by the
+  reference's ring formulas: weights gathered over the batch axes,
+  gradients reduce-scattered over them, activations all-reduced over
+  ``"model"``;
+* **FLOPs per device** (``device_cost``): the ops rank 0 runs in that
+  sharded run, priced as ``op_cost`` is; a layer the divisibility
+  fallback replicated over ``"model"`` counts whole on every card of the
+  group (``compute_note`` names them).
 
 Every count is affine in the model's depth, so a model of more than 2
 blocks is priced at 1 and 2 blocks of its pattern and extrapolated
@@ -63,10 +70,6 @@ MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
 MEMORY_NOTE = ("no eager counterpart of the compiled memory_analysis; not "
                "estimated")
-COMPUTE_NOTE = ("every rank computes whole layers on weights gathered "
-                "whole and its batch rows; the model axis shards storage "
-                "only, so each card does n_model x op_cost/n_devices of "
-                "the compute")
 
 
 # optimizer choice per scale: adafactor >= 100B total params
@@ -193,40 +196,110 @@ def _zeros(tree):
         lambda _, x: torch.zeros(x.shape, dtype=x.dtype), tree)
 
 
-def _batch_layout(rules, path, x, mesh):
-    """Placements of a cache leaf with only its batch dim sharded."""
-    axes = shd.resolve_axes(path, x.dim())
-    only = tuple(a if a == "batch" else None for a in axes)
-    return rules.placements_for(only, x.shape, mesh)
+# the cache dims a tensor-parallel layer reads split: the batch over the
+# batch axes, the kv and SSM heads over "model" where the rules split the
+# weights' heads (the cache's own layout gives "model" to cache_seq)
+_TP_CACHE_AXES = ("batch", "kv_heads", "ssm_heads")
 
 
-def _gather_cache(cache, rules, mesh):
-    return shd.tree_map_with_path(
-        lambda p, c: c.redistribute(mesh, _batch_layout(rules, p, c, mesh))
-        .to_local(), cache)
+def _tp_layout(rules, path, shape, mesh):
+    """Placements of a cache leaf in the layout the tensor-parallel layers
+    read: batch and heads split, the sequence whole."""
+    axes = shd.resolve_axes(path, len(shape))
+    only = tuple(a if a in _TP_CACHE_AXES else None for a in axes)
+    return rules.placements_for(only, shape, mesh)
 
 
-def _place_cache(cache, rules, mesh, global_batch: int):
-    """A cache of this rank's batch rows as DTensors in the rules'
-    layout (the model-axis shards are local chunks: nothing moves)."""
+def _conv_x_range(cfg, rules, mesh):
+    """This rank's x channels of a Mamba2 conv state [.., x | B | C]: its
+    SSM heads' channels where the rules split the heads, else all."""
+    spec = rules.spec_for(("ssm_heads",), (cfg.ssm_heads,), mesh)
+    if not spec:
+        return 0, cfg.d_inner
+    d = list(mesh.mesh_dim_names).index("model")
+    per = cfg.d_inner // mesh.size(d)
+    r = mesh.get_local_rank(d)
+    return r * per, (r + 1) * per
+
+
+def _gather_cache(cache, rules, mesh, cfg):
+    """The cache, in the rules' layout, redistributed to the plain local
+    tensors the tensor-parallel decode reads: this rank's batch rows and
+    heads, every slot; a conv state holds the rank's x channels, then B
+    and C."""
+    lo, hi = _conv_x_range(cfg, rules, mesh)
+
+    def get(path, c):
+        keep = _tp_layout(rules, path, c.shape, mesh)
+        local = c.redistribute(mesh, keep).to_local()
+        if path.rpartition(".")[2] == "conv":
+            local = torch.cat([local[..., lo:hi],
+                               local[..., cfg.d_inner:]], dim=-1)
+        return local
+    return shd.tree_map_with_path(get, cache)
+
+
+def _place_cache(cache, rules, mesh, global_batch: int, cfg):
+    """A cache of this rank's batch rows and heads (as the
+    tensor-parallel layers write it) as DTensors in the rules' layout."""
     from torch.distributed.tensor import DTensor
+    lo, hi = _conv_x_range(cfg, rules, mesh)
+
+    def dtensor(c, placements, shape):
+        stride, n = [], 1
+        for d in reversed(shape):
+            stride.insert(0, n)
+            n *= d
+        return DTensor.from_local(c, mesh, placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=tuple(stride))
 
     def put(path, c):
         axes = shd.resolve_axes(path, c.dim())
         shape = list(c.shape)
         if "batch" in axes:
             shape[axes.index("batch")] = global_batch
-        stride, n = [], 1
-        for d in reversed(shape):
-            stride.insert(0, n)
-            n *= d
-        only = tuple(a if a == "batch" else None for a in axes)
-        local = DTensor.from_local(
-            c, mesh, rules.placements_for(only, shape, mesh),
-            run_check=False, shape=torch.Size(shape), stride=tuple(stride))
-        return local.redistribute(mesh, rules.placements_for(axes, shape,
-                                                             mesh))
+        if path.rpartition(".")[2] == "conv":
+            # the x channels whole (gathered over "model"), then B and C
+            xs = shape[:-1] + [cfg.d_inner]
+            rows = _tp_layout(rules, path, xs, mesh)
+            split = rules.placements_for((None, "batch", None, "ssm_inner"),
+                                         xs, mesh)
+            x = dtensor(c[..., :hi - lo], split if hi - lo < cfg.d_inner
+                        else rows, xs).redistribute(mesh, rows).to_local()
+            c = torch.cat([x, c[..., hi - lo:]], dim=-1)
+            shape[-1] = c.shape[-1]
+        else:
+            for a, name in enumerate(axes):
+                if name in ("kv_heads", "ssm_heads"):
+                    shape[a] = {"kv_heads": cfg.num_kv_heads,
+                                "ssm_heads": cfg.ssm_heads}[name]
+        return dtensor(c, _tp_layout(rules, path, shape, mesh),
+                       shape).redistribute(
+            mesh, rules.placements_for(axes, shape, mesh))
     return shd.tree_map_with_path(put, cache)
+
+
+def compute_note(cfg, rules, sizes: dict) -> str:
+    """What each card of a cell computes: its ``"model"`` shard of every
+    dim the rules split, and whole the dims the divisibility fallback
+    replicated on a ``"model"`` axis of ``sizes``."""
+    mesh = type("Sizes", (), {"shape": sizes})()
+    dims = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "mlp": cfg.d_ff if any(sp.mlp == "dense"
+                                   for sp in cfg.full_pattern) else 0,
+            "experts": cfg.num_experts, "vocab": cfg.padded_vocab,
+            "ssm_heads": cfg.ssm_heads if cfg.ssm_state else 0}
+    whole = [f"{name} {n}" for name, n in dims.items()
+             if n and not rules.spec_for((name,), (n,), mesh)]
+    n_model = sizes.get("model", 1)
+    return ("tensor-parallel over model: each card computes its 1/"
+            f"{n_model} of the heads, MLP, vocab, experts and SSM heads "
+            "and its batch rows; "
+            + (f"whole on every card of a model group (the fallback "
+               f"replicated them): {', '.join(whole)}, so those layers "
+               f"take n_model x their share of op_cost/n_devices"
+               if whole else "no dim is replicated by the fallback"))
 
 
 def run_config(cfg, shape, multi_pod: bool, extra: dict,
@@ -293,21 +366,21 @@ def sharded_run(cfg, rcfg, shape, mesh, rules, param_dtype):
             step(params, opt_state, 0, batch)
         state += shd.local_bytes(opt_state)
         return state, collective_stats(log)
-    model, slots = sharded_model(cfg, rcfg, mesh)
+    model, slots = sharded_model(cfg, rcfg)
     shd.bind(slots, params)
     local = shd.batch_shard(batch, mesh)
     if shape.kind == "prefill":
         with log:
             _, cache = M.prefill(cfg, rcfg, model, local)
-            _place_cache(cache, RULES, mesh, shape.global_batch)
+            _place_cache(cache, RULES, mesh, shape.global_batch, cfg)
         return state, collective_stats(log)
     cache = shd.shard_tree(_zeros(M.cache_specs(cfg, rcfg, shape)), RULES,
                            mesh)
     with log:
         _, new = M.decode_step(cfg, rcfg, model,
-                               _gather_cache(cache, RULES, mesh),
+                               _gather_cache(cache, RULES, mesh, cfg),
                                local["token"], shape.seq_len - 1)
-        _place_cache(new, RULES, mesh, shape.global_batch)
+        _place_cache(new, RULES, mesh, shape.global_batch, cfg)
     return state + shd.local_bytes(cache), collective_stats(log)
 
 
@@ -341,16 +414,23 @@ def _affine(x1, x2, blocks: int):
 
 def _price(cfg, rcfg, shape, dims, names, rules, param_dtype) -> dict:
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.analysis.optrace import OpRecorder
+    from repro_torch.runtime.flops import records_cost
     t0 = time.perf_counter()
     with FakeTensorMode():
         cost = cell_cost(cfg, rcfg, shape, param_dtype)
     t_cost = time.perf_counter() - t0
     with fake_mesh(dims, names) as dm, FakeTensorMode():
-        state_bytes, coll = sharded_run(cfg, rcfg, shape, dm, rules,
-                                        param_dtype)
+        with OpRecorder() as rec:
+            state_bytes, coll = sharded_run(cfg, rcfg, shape, dm, rules,
+                                            param_dtype)
+    device = records_cost(r for r in rec.records
+                          if not r.name.startswith("_c10d_functional::"))
     return {"op_cost": {"flops": cost.flops, "dot_flops": cost.dot_flops,
                         "bytes_unfused": cost.bytes,
                         "by_prim": dict(cost.by_prim)},
+            "device_cost": {"flops": device.flops,
+                            "dot_flops": device.dot_flops},
             "state_bytes_per_device": state_bytes, "collectives": coll,
             "host_s": {"op_cost": t_cost,
                        "sharded_run": time.perf_counter() - t0 - t_cost}}
@@ -412,9 +492,10 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         "depth": {"blocks": cfg.num_blocks, "priced_blocks": list(depths)},
         "host_s": priced["host_s"],
         "memory": None, "memory_note": MEMORY_NOTE,
-        "compute_note": COMPUTE_NOTE,
+        "compute_note": compute_note(cfg, rules, dict(zip(names, dims))),
         "state_bytes_per_device": int(priced["state_bytes_per_device"]),
         "op_cost": cost,
+        "device_cost": priced["device_cost"],
         "model_flops": float(model_flops),
         "collectives": coll,
         "params_total": cfg.param_count(),
@@ -423,7 +504,8 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     print(f"state_bytes/device: {record['state_bytes_per_device'] / 2**30:.2f}"
           f" GiB")
     print(f"op flops={cost['flops']:.3e} dot={cost['dot_flops']:.3e} "
-          f"model_flops={model_flops:.3e}")
+          f"model_flops={model_flops:.3e}; rank 0 computes "
+          f"{priced['device_cost']['flops']:.3e}")
     print(f"collectives: {coll['totals']}")
     return record
 

@@ -2,27 +2,31 @@
 ``repro.launch.roofline``, priced for the NVIDIA H100 SXM.
 
 Terms per (arch x shape x mesh):
-  compute    = FLOPs / (chips x PEAK_FLOPS)
+  compute    = FLOPs / (chips x PEAK_FLOPS)       [the reference's term]
+  compute_device = rank 0's FLOPs / PEAK_FLOPS    [what one card computes]
   memory     = HBM bytes / HBM_BW                 [per device; lo/hi bounds]
   collective = wire bytes per device / LINK_BW
 
 FLOPs are the dry run's ``op_cost`` (``runtime/flops.py::cost_of`` over
-the unsharded function, global).  HBM bytes are bounded: ``lo`` = 2 x
-resident state per device (params, optimizer state or cache read and
-written once a step), ``hi`` = the unfused per-op traffic of ``op_cost``
-over the chips; the structural estimate in between is the one the terms
-use.  Collective wire bytes are the dry run's, from ``CommDebugMode`` and
-the ring formulas.
+the unsharded function, global) and ``device_cost`` (the same pricing of
+the ops rank 0 runs in the tensor-parallel program; it exceeds the global
+share where the divisibility fallback replicated a layer over
+``"model"``, and the records name those layers in ``compute_note``).  The
+dominant term uses ``compute_device`` where the record has one.  HBM
+bytes are bounded: ``lo`` = 2 x resident state per device (params,
+optimizer state or cache read and written once a step), ``hi`` = the
+unfused per-op traffic of ``op_cost`` over the chips; the structural
+estimate in between is the one the terms use.  Collective wire bytes are
+the dry run's, from ``CommDebugMode`` and the ring formulas: weights
+gathered and gradients reduce-scattered over the batch axes (FSDP), and
+activations all-reduced over ``"model"`` (tensor parallelism).
 
 The constants are the H100 SXM's published peaks, in one place
 (``obs/commit_profile.py``, ``obs/ssd_profile.py`` and ``chip_smoke.py``
 import them): 989 TFLOP/s dense bf16 on the tensor cores (67 TFLOP/s f32
 without them, for the kernels' bounds), 3.35 TB/s of HBM3, and one 400
 Gb/s NIC per card (50 GB/s) as the DGX H100 layout gives each GPU — NVLink's 450 GB/s each way inside a node of 8 is not
-modelled, as the reference models one link per chip.  The port's
-``"model"`` axis shards storage only (each card computes whole layers),
-so on a production mesh each card does 16x the compute term's share;
-the records say so in ``compute_note``.
+modelled, as the reference models one link per chip.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline [--dir artifacts/dryrun]
@@ -114,13 +118,16 @@ def terms(d: dict) -> dict:
     wire = d["collectives"]["totals"]["wire_bytes"]   # per device
     t_coll = wire / LINK_BW
     t_mem_struct = structural_mem_bytes(d) / HBM_BW
-    terms3 = {"compute": t_compute, "memory": t_mem_struct,
+    dev = d.get("device_cost")
+    t_compute_dev = dev["flops"] / PEAK_FLOPS if dev else t_compute
+    terms3 = {"compute": t_compute_dev, "memory": t_mem_struct,
               "collective": t_coll}
     dominant = max(terms3, key=terms3.get)
     bound = max(terms3.values())
     mf = d["model_flops"]
     return {
-        "t_compute": t_compute, "t_mem_lo": t_mem_lo, "t_mem_hi": t_mem_hi,
+        "t_compute": t_compute, "t_compute_device": t_compute_dev,
+        "t_mem_lo": t_mem_lo, "t_mem_hi": t_mem_hi,
         "t_mem": t_mem_struct,
         "t_coll": t_coll, "dominant": dominant,
         "model_flops": mf,
@@ -132,13 +139,14 @@ def terms(d: dict) -> dict:
 
 
 _LEVER = {
-    "collective": "cut re-gathered weights (gather once per step instead "
-                  "of per microbatch and recompute, or keep TP shards "
-                  "resident)",
+    "collective": "cut the FSDP weight gathers over data (once per step "
+                  "instead of per microbatch and recompute) and the "
+                  "activation all-reduces over model (sequence "
+                  "parallelism, overlap with compute)",
     "memory": "fuse elementwise passes; bf16 state; bigger tiles to raise "
               "arithmetic intensity",
-    "compute": "remove remat waste / causal-skip attention / compute the "
-               "model axis tensor-parallel",
+    "compute": "remove remat waste / causal-skip attention / shard the "
+               "layers the fallback replicates over model",
 }
 
 
@@ -150,7 +158,8 @@ def lever(d: dict, t: dict) -> str:
 
 
 def to_markdown(rows) -> str:
-    hdr = ("| arch | shape | mesh | compute s | memory s (struct; unfused-hi)"
+    hdr = ("| arch | shape | mesh | compute s a device (global/chips) "
+           "| memory s (struct; unfused-hi)"
            " | collective s | dominant | 6ND/ops | roofline frac | lever |")
     sep = "|" + "---|" * 10
     out = [hdr, sep]
@@ -162,7 +171,7 @@ def to_markdown(rows) -> str:
         t = terms(d)
         out.append(
             f"| {d['arch']} | {d['shape']} | {d['mesh']} "
-            f"| {t['t_compute']:.3f} "
+            f"| {t['t_compute_device']:.3f} ({t['t_compute']:.3f}) "
             f"| {t['t_mem']:.3f} ({t['t_mem_hi']:.1f}) "
             f"| {t['t_coll']:.3f} | **{t['dominant']}** "
             f"| {t['useful_ratio']:.2f} | {t['roofline_frac']:.3f} "
@@ -187,7 +196,8 @@ def main(argv=None):
         import csv
         with open(args.csv, "w", newline="") as f:
             w = csv.writer(f)
-            w.writerow(["arch", "shape", "mesh", "t_compute", "t_mem",
+            w.writerow(["arch", "shape", "mesh", "t_compute",
+                        "t_compute_device", "t_mem",
                         "t_mem_lo", "t_mem_hi", "t_coll", "dominant",
                         "useful_ratio", "roofline_frac"])
             for d in rows:
@@ -195,7 +205,8 @@ def main(argv=None):
                     continue
                 t = terms(d)
                 w.writerow([d["arch"], d["shape"], d["mesh"],
-                            t["t_compute"], t["t_mem"], t["t_mem_lo"],
+                            t["t_compute"], t["t_compute_device"], t["t_mem"],
+                            t["t_mem_lo"],
                             t["t_mem_hi"], t["t_coll"], t["dominant"],
                             t["useful_ratio"], t["roofline_frac"]])
 

@@ -16,6 +16,13 @@ the softcap before the mask, ``NEG_INF = -1e30`` with a guard for fully
 masked rows, probabilities cast to ``v``'s dtype before P·V.  The
 reference has no Pallas kernel here, so neither path is a hand-written
 kernel: they are ``torch.matmul``.
+
+On a mesh the layer computes on this rank's ``"model"`` shard of the
+heads where the rules split them: the projections are column-parallel,
+``wo`` row-parallel, and each local q head reads its own kv head, from
+the local kv heads where those are split too, else from the whole set
+that every rank computes.  Where the fallback replicated the heads, the
+layer computes them whole.
 """
 from __future__ import annotations
 
@@ -58,6 +65,21 @@ class Attention(nn.Module):
             self.k_norm = ones(hd, generator, dtype)
 
 
+def heads_shards(p: Attention):
+    """(the q heads' ``"model"`` shard, the kv heads') of the layer's
+    weights; None where whole."""
+    return shd.model_shard(p, "wq"), shd.model_shard(p, "wk")
+
+
+def _inputs(p: Attention, x):
+    """(x for the q projection, x for the k/v projections): ``x`` enters
+    the sharded heads once, and the kv projections computed whole read it
+    as it is."""
+    qs, ks = heads_shards(p)
+    xq = shd.copy_to_model(x, qs)
+    return xq, (xq if ks is not None else x)
+
+
 def _proj(x, w):
     """x [B, S, d] @ w [d, H, D] -> [B, S, H, D] in x's dtype."""
     d, h, k = w.shape
@@ -66,11 +88,15 @@ def _proj(x, w):
 
 def project_q(cfg: ModelConfig, p: Attention, x, positions, *,
               use_rope: bool = True):
+    """The layer's (local) q heads from ``x``, the first of
+    :func:`_inputs`; ``q_norm`` is whole and its gradient summed over the
+    heads' group."""
     q = _proj(x, p.wq)
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
     if cfg.qk_norm:
-        q = rmsnorm(q, p.q_norm, cfg.norm_eps)
+        q = rmsnorm(q, shd.copy_to_model(p.q_norm, heads_shards(p)[0]),
+                    cfg.norm_eps)
     if use_rope and cfg.pos_embedding == "rope":
         q = rope(q, positions, cfg.rope_theta)
     return q
@@ -78,13 +104,16 @@ def project_q(cfg: ModelConfig, p: Attention, x, positions, *,
 
 def project_kv(cfg: ModelConfig, p: Attention, x, positions, *,
                use_rope: bool = True):
+    """The layer's (local) kv heads from ``x``, the second of
+    :func:`_inputs`."""
     k = _proj(x, p.wk)
     v = _proj(x, p.wv)
     if cfg.qkv_bias:
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
     if cfg.qk_norm:
-        k = rmsnorm(k, p.k_norm, cfg.norm_eps)
+        k = rmsnorm(k, shd.copy_to_model(p.k_norm, heads_shards(p)[1]),
+                    cfg.norm_eps)
     if use_rope and cfg.pos_embedding == "rope":
         k = rope(k, positions, cfg.rope_theta)
     return k, v
@@ -95,6 +124,22 @@ def repeat_kv(x, num_heads: int):
     place (``jnp.repeat``, not a tile)."""
     reps = num_heads // x.shape[2]
     return x if reps == 1 else x.repeat_interleave(reps, dim=2)
+
+
+def kv_for_heads(cfg: ModelConfig, p: Attention, k, v):
+    """K/V [B, S, KV', D] of the layer's kv heads -> [B, S, H', D], one per
+    local q head: with both head dims split each rank's q heads read its
+    own kv heads (:func:`repeat_kv`); with the kv heads whole and the q
+    heads split, the kv heads of the local q heads, which enter the
+    sharded heads here; with both whole, :func:`repeat_kv`."""
+    qs, ks = heads_shards(p)
+    if qs is None or ks is not None:
+        h = cfg.num_heads if qs is None else qs.stop - qs.start
+        return repeat_kv(k, h), repeat_kv(v, h)
+    reps = cfg.num_heads // cfg.num_kv_heads
+    idx = torch.arange(qs.start, qs.stop, device=k.device) // reps
+    return (shd.copy_to_model(k, qs).index_select(2, idx),
+            shd.copy_to_model(v, qs).index_select(2, idx))
 
 
 def _mask(q_pos, k_pos, *, causal: bool, window: int | None):
@@ -223,11 +268,13 @@ def _out(p: Attention, o, dtype):
     """[B, S, H, D] @ wo [H, D, d] -> [B, S, d], as one [B·S, H·D]
     product: a 3-D left operand with a size-1 dim (decode) would fold to
     a product or not depending on that dim's stride, which fake tensors
-    (the dry run) set differently from real ones."""
+    (the dry run) set differently from real ones.  Row-parallel over the
+    local heads: their partial sums are summed over the group."""
     h, k, d = p.wo.shape
     b, s = o.shape[:2]
-    return (o.reshape(b * s, h * k) @ p.wo.to(dtype).reshape(h * k, d)
-            ).reshape(b, s, d)
+    y = (o.reshape(b * s, h * k) @ p.wo.to(dtype).reshape(h * k, d)
+         ).reshape(b, s, d)
+    return shd.reduce_from_model(y, heads_shards(p)[0])
 
 
 def _constraint(x, axes):
@@ -241,14 +288,15 @@ def attn_apply(cfg: ModelConfig, p: Attention, x, positions, call: AttnCall,
     in the chunked path and places q, k and v as the reference does under
     sequence parallelism (q sharded over ``"act_seq"``, the grouped K/V
     gathered whole before they are repeated; on DTensors only)."""
-    q = project_q(cfg, p, x, positions, use_rope=call.use_rope)
-    k, v = project_kv(cfg, p, x, positions, use_rope=call.use_rope)
+    xq, xkv = _inputs(p, x)
+    q = project_q(cfg, p, xq, positions, use_rope=call.use_rope)
+    k, v = project_kv(cfg, p, xkv, positions, use_rope=call.use_rope)
     seq, whole = ("batch", "act_seq", None, None), ("batch", None, None, None)
     if seq_parallel:
         q = _constraint(q, seq)
         k = _constraint(_constraint(k, seq), whole)
         v = _constraint(_constraint(v, seq), whole)
-    kf, vf = repeat_kv(k, cfg.num_heads), repeat_kv(v, cfg.num_heads)
+    kf, vf = kv_for_heads(cfg, p, k, v)
     if seq_parallel:
         kf, vf = _constraint(kf, whole), _constraint(vf, whole)
     out = attention_core(
@@ -263,22 +311,23 @@ def attn_decode(cfg: ModelConfig, p: Attention, x, pos: int, cache_k,
     """Single-token decode.  x: [B, 1, d]; pos: the position (uniform
     over the batch).
 
-    cache_k/v: [B, W, KV, D]; cache_pos: [W] int32 (absolute position per
+    cache_k/v: [B, W, KV, D] (on a mesh the layer's kv heads: local where
+    the rules split them); cache_pos: [W] int32 (absolute position per
     slot, -1 = empty); the token goes to ring slot ``pos % W``.  Returns
     (out, new cache_k, new cache_v, new cache_pos); the caches passed in
     are not modified."""
     b, w = x.shape[0], cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q = project_q(cfg, p, x, positions, use_rope=call.use_rope)
-    k, v = project_kv(cfg, p, x, positions, use_rope=call.use_rope)
+    xq, xkv = _inputs(p, x)
+    q = project_q(cfg, p, xq, positions, use_rope=call.use_rope)
+    k, v = project_kv(cfg, p, xkv, positions, use_rope=call.use_rope)
     slot = pos % w
     cache_k, cache_v, cache_pos = (cache_k.clone(), cache_v.clone(),
                                    cache_pos.clone())
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     cache_pos[slot] = pos
-    kf = repeat_kv(cache_k.to(x.dtype), cfg.num_heads)
-    vf = repeat_kv(cache_v.to(x.dtype), cfg.num_heads)
+    kf, vf = kv_for_heads(cfg, p, cache_k.to(x.dtype), cache_v.to(x.dtype))
     k_pos = cache_pos[None, :].expand(b, w)
     out = attention_core(q, kf, vf, positions, k_pos, causal=call.causal,
                          window=call.window, softcap_val=cfg.attn_softcap,
@@ -288,12 +337,12 @@ def attn_decode(cfg: ModelConfig, p: Attention, x, pos: int, cache_k,
 
 def cross_attn_apply(cfg: ModelConfig, p: Attention, x, enc_k, enc_v):
     """Encoder-decoder cross attention (whisper).  enc_k/v: [B, Se, KV,
-    D]; every encoder slot is valid, no mask, no RoPE."""
+    D] (the layer's kv heads, from :func:`cross_kv`); every encoder slot
+    is valid, no mask, no RoPE."""
     b, sq = x.shape[0], x.shape[1]
     positions = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
-    q = project_q(cfg, p, x, positions, use_rope=False)
-    kf = repeat_kv(enc_k.to(x.dtype), cfg.num_heads)
-    vf = repeat_kv(enc_v.to(x.dtype), cfg.num_heads)
+    q = project_q(cfg, p, _inputs(p, x)[0], positions, use_rope=False)
+    kf, vf = kv_for_heads(cfg, p, enc_k.to(x.dtype), enc_v.to(x.dtype))
     se = enc_k.shape[1]
     k_pos = torch.arange(se, dtype=torch.int32,
                          device=x.device)[None].expand(b, se)
@@ -301,3 +350,9 @@ def cross_attn_apply(cfg: ModelConfig, p: Attention, x, enc_k, enc_v):
                          window=None, softcap_val=cfg.attn_softcap,
                          force_direct=(sq == 1))
     return _out(p, out, x.dtype)
+
+
+def cross_kv(cfg: ModelConfig, p: Attention, enc):
+    """The cross K/V [B, Se, KV', D] of the encoder states ``enc``: the
+    layer's kv heads, local where the rules split them."""
+    return project_kv(cfg, p, _inputs(p, enc)[1], None, use_rope=False)

@@ -9,7 +9,11 @@ layer, with learned positions.  The cross K/V are computed once at
 prefill and kept in the cache.  The cache is one dict of tensors stacked
 over the decoder layers: ``k``, ``v`` (bf16), ``pos``, ``cross_k``,
 ``cross_v`` (bf16).  Under autograd every encoder and decoder layer runs
-under :func:`repro_torch.models.lm.remat`.
+under :func:`repro_torch.models.lm.remat`.  On a mesh the attention and
+MLPs of both stacks, the cross K/V projections among them, compute on
+this rank's heads and MLP shard where the rules split them
+(:mod:`repro_torch.models.attention`, :func:`~repro_torch.models.layers.
+mlp_apply`); the cache holds the rank's kv heads.
 """
 from __future__ import annotations
 
@@ -87,7 +91,7 @@ def _enc_layer(cfg: ModelConfig, p: EncLayer, x, positions):
 
 
 def _cross_kv(cfg: ModelConfig, p: DecLayer, enc):
-    k, v = attn.project_kv(cfg, p.cross, enc, None, use_rope=False)
+    k, v = attn.cross_kv(cfg, p.cross, enc)
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 

@@ -7,6 +7,12 @@ is.
 Numerics follow the reference: norms and RoPE angles in f32, the
 embedding scale and the softcaps in the compute dtype, and the non-gated
 MLP's GELU in its tanh form (``jax.nn.gelu``'s default, not torch's).
+
+On a mesh (:func:`repro_torch.runtime.sharding.gather_on_use`) the MLP,
+the lookup and the head compute on this rank's ``"model"`` shard of the
+MLP width or the vocab where the rules split it
+(:func:`~repro_torch.runtime.sharding.model_shard`), and whole where they
+left it replicated.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.runtime import sharding as shd
 
 
 def gen_device(generator: torch.Generator | None) -> torch.device:
@@ -111,13 +118,17 @@ def gelu(x):
 
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x):
+    """``wi``/``wi_gate`` column-parallel and ``wo`` row-parallel over the
+    ``"mlp"`` shard, where the rules split it."""
+    sh = shd.model_shard(p, "wi")
+    x = shd.copy_to_model(x, sh)
     h = x @ p.wi.to(x.dtype)
     if cfg.mlp_gated:
         g = x @ p.wi_gate.to(x.dtype)
         h = F.silu(g) * h
     else:
         h = gelu(h)
-    return h @ p.wo.to(x.dtype)
+    return shd.reduce_from_model(h @ p.wo.to(x.dtype), sh)
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +158,18 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens, compute_dtype):
     """tokens [B, S] -> [B, S, d] in ``compute_dtype``.  Gathers, then
     casts: the same values as the reference's cast of the whole table.
     ``scale_embeddings`` multiplies by ``d_model ** 0.5`` rounded to the
-    compute dtype first."""
-    x = p.embedding[tokens.long()].to(compute_dtype)
+    compute dtype first.  On a vocab shard, each rank looks up the tokens
+    in its range and the rows are summed over the group (one is not
+    zero)."""
+    sh = shd.model_shard(p, "embedding")
+    tokens = tokens.long()
+    if sh is None:
+        x = p.embedding[tokens].to(compute_dtype)
+    else:
+        local = tokens - sh.start
+        mine = (local >= 0) & (local < sh.stop - sh.start)
+        x = p.embedding[torch.where(mine, local, 0)].to(compute_dtype)
+        x = shd.reduce_from_model(torch.where(mine[..., None], x, 0), sh)
     if cfg.scale_embeddings:
         x = x * scalar(cfg.d_model ** 0.5, x)
     return x
@@ -165,16 +186,26 @@ def softcap(x, cap):
     return torch.tanh(x / cap) * cap if cap else x
 
 
+def head_shard(cfg: ModelConfig, p: Embedding) -> shd.ModelShard | None:
+    """The vocab shard of the LM head (the table where it is tied)."""
+    return shd.model_shard(p, "embedding" if cfg.tie_embeddings
+                           else "lm_head")
+
+
 def lm_logits(cfg: ModelConfig, p: Embedding, x):
     """x [B, S, d] -> logits [B, S, V]: the final-logit softcap, then the
-    padded vocab entries set to -1e30."""
+    padded vocab entries set to -1e30.  On a vocab shard, this rank's
+    logits [B, S, V/n] of the entries ``head_shard(cfg, p)`` holds."""
+    sh = head_shard(cfg, p)
+    x = shd.copy_to_model(x, sh)
     if cfg.tie_embeddings:
         logits = x @ p.embedding.to(x.dtype).T
     else:
         logits = x @ p.lm_head.to(x.dtype)
     logits = softcap(logits, cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
-        pad_mask = torch.arange(cfg.padded_vocab,
+        lo = 0 if sh is None else sh.start
+        pad_mask = torch.arange(lo, lo + logits.shape[-1],
                                 device=x.device) < cfg.vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     return logits

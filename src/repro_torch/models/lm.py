@@ -14,8 +14,9 @@ stacked over blocks ``j``, so ``cache[i][k][j]`` belongs to layer
 hook (:func:`repro_torch.runtime.sharding.logical_constraint` under the
 training rules), called where the reference calls it: it redistributes a
 DTensor activation to the rules' layout and passes a plain tensor, which
-is what the sharded train step computes on (its weights are gathered
-whole).
+is what the sharded runs compute on (each layer reads its weights'
+``"model"`` shards and computes tensor-parallel; see
+:mod:`repro_torch.runtime.sharding`).
 
 Under autograd, :func:`remat` wraps each layer as the reference's
 ``_remat`` wraps its scanned block: ``"full"`` keeps only the layer's

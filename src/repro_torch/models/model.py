@@ -17,6 +17,8 @@ import torch.nn.functional as F
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.models import encdec, lm
+from repro_torch.models import layers as L
+from repro_torch.runtime import sharding as shd
 
 
 def is_encdec(cfg: ModelConfig) -> bool:
@@ -42,11 +44,30 @@ def _forward(cfg: ModelConfig, rcfg: RunConfig, model, batch, mode: str):
                       extra_embeds=batch.get("patch_embeds"), mode=mode)
 
 
+def _log_likelihood(logits, labels, sh):
+    """The f32 log-probability of each label.  On a vocab shard ``sh``
+    (logits [B, S, V/n]) it is the vocab-parallel form: the max and the sum
+    of exponentials over the group, the label's logit from the rank that
+    holds it; ``[B, S, V]`` is never gathered."""
+    logits = logits.float()
+    if sh is None:
+        return torch.log_softmax(logits, dim=-1).gather(
+            -1, labels[..., None])[..., 0]
+    m = shd.max_over_model(logits.amax(-1, keepdim=True), sh)
+    sumexp = shd.reduce_from_model(torch.exp(logits - m).sum(-1), sh)
+    local = labels - sh.start
+    mine = (local >= 0) & (local < logits.shape[-1])
+    own = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    own = shd.reduce_from_model(torch.where(mine, own, 0.0), sh)
+    return own - m[..., 0] - torch.log(sumexp)
+
+
 def loss_fn(cfg: ModelConfig, rcfg: RunConfig, model, batch):
     """Next-token cross entropy (labels < 0 are ignored; the vlm prefix is
     padded with -1 labels) on f32 log-probabilities, plus
     ``router_aux_weight · moe_aux / num_layers``.  Returns (loss, metrics
-    with ``"ce"``), all on the device."""
+    with ``"ce"``), all on the device; on a mesh every rank of a
+    ``"model"`` group computes the same loss."""
     logits, _, metrics = _forward(cfg, rcfg, model, batch, mode="train")
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:   # vlm prefix: pad with -1
@@ -54,8 +75,7 @@ def loss_fn(cfg: ModelConfig, rcfg: RunConfig, model, batch):
                        value=-1)
     valid = labels >= 0
     labels_c = labels.clamp(0, cfg.padded_vocab - 1).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, labels_c[..., None])[..., 0]
+    ll = _log_likelihood(logits, labels_c, L.head_shard(cfg, model.embed))
     denom = valid.sum().clamp_min(1)
     ce = -torch.where(valid, ll, 0.0).sum() / denom
     total = ce + cfg.router_aux_weight * metrics["moe_aux"] / max(
@@ -65,13 +85,21 @@ def loss_fn(cfg: ModelConfig, rcfg: RunConfig, model, batch):
     return total, metrics
 
 
+def whole_logits(cfg: ModelConfig, model, logits):
+    """Logits [B, 1, V]: a vocab shard's [B, 1, V/n] gathered over the
+    group (the server samples from the whole row)."""
+    return shd.gather_from_model(logits, L.head_shard(cfg, model.embed),
+                                 dim=-1)
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, rcfg: RunConfig, model, batch):
     """batch: ``{"tokens": [B, S]}``, plus ``"frames"`` [B, Se, d] for
     whisper or ``"patch_embeds"`` [B, F, d] for the vlm prefix.  Returns
-    (last logits [B, 1, V], cache)."""
+    (last logits [B, 1, V], cache); on a mesh the cache holds this rank's
+    kv and SSM heads."""
     logits, cache, _ = _forward(cfg, rcfg, model, batch, mode="prefill")
-    return logits[:, -1:], cache
+    return whole_logits(cfg, model, logits[:, -1:]), cache
 
 
 def init_cache(cfg: ModelConfig, rcfg: RunConfig, batch: int, max_len: int,
@@ -85,9 +113,11 @@ def init_cache(cfg: ModelConfig, rcfg: RunConfig, batch: int, max_len: int,
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, rcfg: RunConfig, model, cache, token,
                 pos: int):
-    if is_encdec(cfg):
-        return encdec.decode_step(cfg, rcfg, model, cache, token, pos)
-    return lm.decode_step(cfg, rcfg, model, cache, token, pos)
+    """token: [B, 1] at ``pos``.  Returns (logits [B, 1, V], the new
+    cache)."""
+    step = encdec.decode_step if is_encdec(cfg) else lm.decode_step
+    logits, cache = step(cfg, rcfg, model, cache, token, pos)
+    return whole_logits(cfg, model, logits), cache
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,14 @@ over a sequence and is the oracle of the chunked form.
 Dtypes follow the reference: ``dt`` is a softplus of an f32 sum, the SSD
 terms run in f32, ``D x`` is added in f32, the gate ``y silu(z)`` runs in
 the compute dtype and the norm in f32.
+
+On a mesh the mixer runs on this rank's ``"model"`` shard of the SSM
+heads where the rules split them: ``wz``, ``wx``, ``wdt``, ``conv_x``,
+``A_log``, ``D``, ``dt_bias`` and ``norm`` column-parallel, ``wB``,
+``wC``, ``conv_B`` and ``conv_C`` whole (each local head reads its
+group), the SSD chunk (the kernel with ``use_pallas``) on the local
+heads, the gated norm's sum of squares summed over the group, and ``wo``
+row-parallel.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
 from repro_torch.models.layers import dense_init, gen_device, rmsnorm
+from repro_torch.runtime import sharding as shd
 
 
 class Mamba2Mixer(nn.Module):
@@ -90,57 +99,107 @@ def _segsum_mask(a):
     return torch.exp(torch.where(tri, diff, float("-inf")))
 
 
-def _project(cfg: ModelConfig, p: Mamba2Mixer, x):
+# the leaves split over the SSM heads (``ssm_heads``/``ssm_inner``); wB,
+# wC, conv_B and conv_C (``ssm_state``) stay whole
+_PER_HEAD = ("wz", "wx", "wdt", "conv_x", "A_log", "D", "dt_bias", "norm",
+             "wo")
+
+
+def _weights(p: Mamba2Mixer):
+    """(the mixer's weights by name, the heads' ``"model"`` shard or None).
+    Where the rules split the heads, the per-head leaves are this rank's;
+    where they split the inner width but not the heads (a head count the
+    axis does not divide), those leaves are gathered whole and the mixer
+    runs whole on every rank."""
+    sh = shd.model_shard(p, "A_log")
+    w = {k: getattr(p, k) for k in _PER_HEAD + ("wB", "wC", "conv_B",
+                                                "conv_C")}
+    if sh is None:
+        w = {k: shd.gather_from_model(v, shd.model_shard(p, k))
+             for k, v in w.items()}
+    return w, sh
+
+
+def _project(w: dict, sh, x):
+    """z, x, B, C and dt of ``x``: the per-head projections
+    column-parallel, B and C whole."""
     cd = x.dtype
-    z = x @ p.wz.to(cd)
-    xin = x @ p.wx.to(cd)
-    B = x @ p.wB.to(cd)
-    C = x @ p.wC.to(cd)
-    dt = F.softplus((x @ p.wdt.to(cd)).float() + p.dt_bias.float())
+    xt = shd.copy_to_model(x, sh)
+    z = xt @ w["wz"].to(cd)
+    xin = xt @ w["wx"].to(cd)
+    B = x @ w["wB"].to(cd)
+    C = x @ w["wC"].to(cd)
+    dt = F.softplus((xt @ w["wdt"].to(cd)).float() + w["dt_bias"].float())
     return z, xin, B, C, dt
 
 
-def _conv_silu(cfg: ModelConfig, p: Mamba2Mixer, xin, B, C, state):
-    """The causal conv over [x, B, C] and its SiLU, split back apart."""
+def _conv_silu(w: dict, sh, xin, B, C, state):
+    """The causal conv over [x, B, C] and its SiLU, split back apart; B
+    and C enter the local heads after it.  The conv state holds the
+    channels in that order (this rank's x channels, then B and C)."""
     conv_in = torch.cat([xin, B, C], dim=-1)
-    conv_w = torch.cat([p.conv_x, p.conv_B, p.conv_C], dim=-1)
+    conv_w = torch.cat([w["conv_x"], w["conv_B"], w["conv_C"]], dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, conv_w, state)
     conv_out = F.silu(conv_out)
-    din, gst = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
-    return (conv_out[..., :din], conv_out[..., din:din + gst],
-            conv_out[..., din + gst:], conv_state)
+    din, gst = xin.shape[-1], B.shape[-1]
+    return (conv_out[..., :din],
+            shd.copy_to_model(conv_out[..., din:din + gst], sh),
+            shd.copy_to_model(conv_out[..., din + gst:], sh), conv_state)
 
 
-def _finish(cfg: ModelConfig, p: Mamba2Mixer, y, x_heads, z):
+def _per_head(cfg: ModelConfig, sh, t, dim: int):
+    """Group tensors [..., G, N] -> [..., H', N], one per local head: head
+    ``h`` reads group ``h // (heads / G)``."""
+    hpg = cfg.ssm_heads // cfg.ssm_groups
+    if sh is None:
+        return t.repeat_interleave(hpg, dim=dim)
+    idx = torch.arange(sh.start, sh.stop, device=t.device) // hpg
+    return t.index_select(dim, idx)
+
+
+def _gated_norm(cfg: ModelConfig, sh, y, w):
+    """RMSNorm over the whole ``d_inner``: on the local heads' channels
+    the sum of squares is summed over the group before the scale."""
+    if sh is None:
+        return rmsnorm(y, w, cfg.norm_eps)
+    dt = y.dtype
+    y = y.float()
+    ss = shd.reduce_from_model(y.square().sum(-1, keepdim=True), sh)
+    ss = shd.copy_to_model(ss, sh)
+    return (y * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+            * w.float()).to(dt)
+
+
+def _finish(cfg: ModelConfig, w: dict, sh, y, x_heads, z):
     b, s = y.shape[0], y.shape[1]
-    y = y + p.D.float()[None, None, :, None] * x_heads.float()
-    y = y.reshape(b, s, cfg.d_inner).to(z.dtype)
+    y = y + w["D"].float()[None, None, :, None] * x_heads.float()
+    y = y.reshape(b, s, -1).to(z.dtype)
     y = y * F.silu(z)
-    y = rmsnorm(y, p.norm, cfg.norm_eps)
-    return y @ p.wo.to(z.dtype)
+    y = _gated_norm(cfg, sh, y, w["norm"])
+    return shd.reduce_from_model(y @ w["wo"].to(z.dtype), sh)
 
 
 def ssm_apply(cfg: ModelConfig, p: Mamba2Mixer, x, *, chunk: int = 128,
               initial_state=None, use_pallas: bool = False):
     """x: [B, S, d].  Returns (out [B, S, d], (conv_state, ssm_state)), the
-    SSM state [B, heads, P, N] in f32."""
+    SSM state [B, heads, P, N] in f32 (on a mesh, this rank's heads)."""
     b, s, _ = x.shape
-    nh, hd, st, g = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+    w, sh = _weights(p)
+    nh, hd, st, g = (w["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state,
                      cfg.ssm_groups)
-    z, xin, B, C, dt = _project(cfg, p, x)
+    z, xin, B, C, dt = _project(w, sh, x)
     conv_state_in = initial_state[0] if initial_state is not None else None
-    xin, B, C, conv_state = _conv_silu(cfg, p, xin, B, C, conv_state_in)
+    xin, B, C, conv_state = _conv_silu(w, sh, xin, B, C, conv_state_in)
 
     L = min(chunk, s)
     while s % L:
         L -= 1
     nc = s // L
     xh = xin.reshape(b, nc, L, nh, hd).float()
-    hpg = nh // g
-    Bh = B.reshape(b, nc, L, g, st).float().repeat_interleave(hpg, dim=3)
-    Ch = C.reshape(b, nc, L, g, st).float().repeat_interleave(hpg, dim=3)
+    Bh = _per_head(cfg, sh, B.reshape(b, nc, L, g, st).float(), 3)
+    Ch = _per_head(cfg, sh, C.reshape(b, nc, L, g, st).float(), 3)
     dtc = dt.reshape(b, nc, L, nh)
-    A = -torch.exp(p.A_log.float())
+    A = -torch.exp(w["A_log"].float())
     a_t = (dtc * A).transpose(-1, -2)                    # [b, nc, nh, L]
     xdt = xh * dtc[..., None]
 
@@ -177,7 +236,7 @@ def ssm_apply(cfg: ModelConfig, p: Mamba2Mixer, x, *, chunk: int = 128,
     y_inter = torch.einsum("bclhn,bchpn,bchl->bclhp", Ch, h_prevs,
                            torch.exp(cs))
     y = (y_intra + y_inter).reshape(b, s, nh, hd)
-    out = _finish(cfg, p, y, xin.reshape(b, s, nh, hd), z)
+    out = _finish(cfg, w, sh, y, xin.reshape(b, s, nh, hd), z)
     return out, (conv_state, h.float())
 
 
@@ -185,21 +244,22 @@ def ssm_decode(cfg: ModelConfig, p: Mamba2Mixer, x, conv_state, ssm_state):
     """One-token decode.  x: [B, 1, d]; states as :func:`ssm_apply` returns
     them.  The conv state is taken in ``x.dtype`` and returned in it."""
     b = x.shape[0]
-    nh, hd, st, g = (cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+    w, sh = _weights(p)
+    nh, hd, st, g = (w["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state,
                      cfg.ssm_groups)
-    z, xin, B, C, dt = _project(cfg, p, x)
-    xin, B, C, conv_state = _conv_silu(cfg, p, xin, B, C,
+    z, xin, B, C, dt = _project(w, sh, x)
+    xin, B, C, conv_state = _conv_silu(w, sh, xin, B, C,
                                        conv_state.to(xin.dtype))
     xh = xin.reshape(b, nh, hd).float()
-    Bh = B.reshape(b, g, st).repeat_interleave(nh // g, dim=1).float()
-    Ch = C.reshape(b, g, st).repeat_interleave(nh // g, dim=1).float()
+    Bh = _per_head(cfg, sh, B.reshape(b, g, st), 1).float()
+    Ch = _per_head(cfg, sh, C.reshape(b, g, st), 1).float()
     dt1 = dt[:, 0]                                       # [b, nh]
-    A = -torch.exp(p.A_log.float())
+    A = -torch.exp(w["A_log"].float())
     dec = torch.exp(dt1 * A[None, :])
     h = ssm_state.float() * dec[..., None, None] + torch.einsum(
         "bh,bhp,bhn->bhpn", dt1, xh, Bh)
     y = torch.einsum("bhpn,bhn->bhp", h, Ch)[:, None]    # [b, 1, nh, hd]
-    out = _finish(cfg, p, y, xh[:, None], z)
+    out = _finish(cfg, w, sh, y, xh[:, None], z)
     return out, (conv_state, h)
 
 

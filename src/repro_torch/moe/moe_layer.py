@@ -22,8 +22,17 @@ overflows is dropped.  The train-time expert-parallel path
 Every step is differentiable: gradients reach the router through the
 sorted top-k weights and ``aux_loss``, and the experts through the
 bucket scatter and the combine's gather.
+
+On a mesh whose rules split the experts over ``"model"``, each rank holds
+E/n of them: the router is gathered whole, so the routing and the bucket
+plan (the count kernel on each rank) are the same on every rank of the
+group; each rank runs its own experts on their ``[E/n, C, d]`` rows,
+combines their weighted outputs, and the partial ``[T, d]`` sums are
+summed over the group.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -54,8 +63,10 @@ def _route(cfg: ModelConfig, p: MoE, x):
     """x: [T, d] -> (weights [T, k] f32, experts [T, k] int32, router
     probs [T, E] f32).  The top k come from a stable descending sort, so
     equal probabilities go to the lower expert id, as ``lax.top_k``
-    breaks ties."""
-    logits = (x @ p.router.to(x.dtype)).float()
+    breaks ties.  The router is read whole (gathered over ``"model"``
+    where the rules split its experts)."""
+    router = shd.gather_from_model(p.router, shd.model_shard(p, "router"))
+    logits = (x @ router.to(x.dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     w, e = torch.sort(probs, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
@@ -97,12 +108,24 @@ def aux_loss(cfg: ModelConfig, probs, experts):
     return e * (me * fe).sum()
 
 
+def _local_plan(plan, sh, e: int):
+    """``plan`` restricted to the experts of ``sh`` (all ``e`` without
+    one), with the owners renumbered from 0: the same positions, so the
+    same rows in each kept expert."""
+    if sh is None:
+        return plan, e
+    mine = (plan.owner >= sh.start) & (plan.owner < sh.stop)
+    return dataclasses.replace(plan, owner=plan.owner - sh.start,
+                               kept=plan.kept & mine), sh.stop - sh.start
+
+
 def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
     """AAM dispatch.  x: [T, d] -> (y [T, d], metrics
     ``{"moe_dropped", "moe_aux"}``)."""
     t, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = _capacity(cfg, t, dropless=mode != "train")
+    sh = shd.model_shard(p, "wi")
     w, experts, probs = _route(cfg, p, x)
 
     # flatten the T x k assignments into one message batch
@@ -111,21 +134,27 @@ def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
     valid = torch.ones(t * k, dtype=torch.bool, device=x.device)
     plan, _ = plan_buckets_sorted(owner, valid, e, cap)
 
-    # coalesced payload: the [E, C, d] activation buffer
-    xb = scatter_to_buckets(plan, x[token], e, cap, fill=0)
+    # coalesced payload: the [E, C, d] activation buffer (this rank's
+    # [E/n, C, d] rows on a mesh)
+    local, e_local = _local_plan(plan, sh, e)
+    xb = scatter_to_buckets(local, shd.copy_to_model(x, sh)[token],
+                            e_local, cap, fill=0)
     xb = shd.logical_constraint(shd.ShardingRules(shd.TRAIN_RULES), xb,
                                 ("experts", "expert_capacity", None))
     yb = _expert_ffn(cfg, p, xb)
 
-    out = _combine(yb, plan, experts, w, cap)
-    return out, {"moe_dropped": plan.dropped,
-                 "moe_aux": aux_loss(cfg, probs, experts)}
+    mine = experts if sh is None else (  # others are not kept locally
+        experts - sh.start).clamp(0, e_local - 1)
+    out = _combine(yb, local, mine, shd.copy_to_model(w, sh), cap)
+    return shd.reduce_from_model(out, sh), {
+        "moe_dropped": plan.dropped, "moe_aux": aux_loss(cfg, probs,
+                                                         experts)}
 
 
 def _combine(yb, plan, experts, w, cap: int):
     """The FR return path: each token gathers its k expert outputs from
     ``yb`` [E, C, d] at ``expert * C + position`` and sums them weighted
-    by its kept top-k weights."""
+    by its kept top-k weights (those whose expert ``yb`` holds)."""
     t, k = experts.shape
     e, _, d = yb.shape
     pos = plan.position.reshape(t, k).long()
@@ -150,12 +179,16 @@ def moe_apply_dense(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
     keep_k = pos_k < cap
     poh = F.one_hot(torch.where(keep_k, pos_k, cap), cap + 1)[..., :cap] \
         .to(x.dtype)                                     # [T, k, C]
+    sh = shd.model_shard(p, "wi")
     oh = onehot.to(x.dtype)
+    if sh is not None:                  # this rank's experts
+        oh = oh[..., sh.start:sh.stop]
     dmat = torch.einsum("tke,tkc->tec", oh, poh)
-    xb = torch.einsum("td,tec->ecd", x, dmat)
+    xb = torch.einsum("td,tec->ecd", shd.copy_to_model(x, sh), dmat)
     yb = _expert_ffn(cfg, p, xb)
-    wmat = torch.einsum("tk,tke,tkc->tec", w.to(x.dtype), oh, poh)
-    out = torch.einsum("ecd,tec->td", yb, wmat)
+    wmat = torch.einsum("tk,tke,tkc->tec",
+                        shd.copy_to_model(w, sh).to(x.dtype), oh, poh)
+    out = shd.reduce_from_model(torch.einsum("ecd,tec->td", yb, wmat), sh)
     dropped = (t * k - keep_k.sum()).to(torch.int32)
     return out, {"moe_dropped": dropped,
                  "moe_aux": aux_loss(cfg, probs, experts)}

@@ -27,6 +27,12 @@ DeviceMesh` a spec becomes DTensor placements (:func:`placements_for`):
 elsewhere.  A dim sharded over ``("pod", "data")`` is split pod-major, as
 in JAX: DTensor orders the shards of one dim by mesh dim, and the rules'
 tuples name the mesh dims in the mesh's order.
+
+Compute on a mesh is tensor-parallel over ``"model"`` (the last section):
+a layer reads its weights' ``"model"`` shards, gathered over the batch
+axes only, and crosses between replicated and sharded activations
+through :func:`copy_to_model` and :func:`reduce_from_model`, as XLA's
+SPMD partitioner runs the reference's einsums on the rules' shards.
 """
 from __future__ import annotations
 
@@ -356,30 +362,181 @@ def logical_constraint(rules: ShardingRules, x, logical_axes):
 
 
 # ---------------------------------------------------------------------------
-# Compute on gathered weights
+# Compute on the local "model" shards
+#
+# A layer reads each weight gathered over every mesh dim but "model" (the
+# FSDP all-gather over "data"/"pod", as the reference's SPMD program also
+# does) and keeps its own "model" shard: the plain tensor it computes on
+# is that shard.  Where the rules split a weight over "model", the layer
+# computes on its slice of the heads, MLP, vocab, experts or SSM heads and
+# crosses between a replicated activation and a sharded one through the
+# operators below; where the divisibility fallback replicated it, the
+# layer computes it whole, as every rank of the group does.
+#
+#   copy_to_model      identity forward, all-reduce backward: a replicated
+#                      activation entering sharded compute (the input of a
+#                      column-parallel product; a replicated weight or
+#                      activation read by local heads)
+#   reduce_from_model  all-reduce forward, identity backward: partial sums
+#                      leaving it (the output of a row-parallel product,
+#                      a vocab-parallel lookup or softmax sum)
+#   gather_from_model  all-gather forward, this rank's slice backward: a
+#                      sharded tensor needed whole by replicated compute
+#                      (the MoE router, the last logits a server samples)
+#
+# Each is one functional collective over the "model" dim of the mesh, so
+# ``CommDebugMode`` counts it as the dry run prices it.
 # ---------------------------------------------------------------------------
 
+MODEL = "model"
 
-def gather_whole(x, grad_placements):
-    """A DTensor gathered whole (all-gather over the mesh dims it is
-    sharded on) into a plain tensor whose gradient flows back as
-    ``grad_placements`` (partial sums over the batch axes), so autograd
-    reduce-scatters it into ``x``'s own layout.  A plain tensor passes."""
+
+@dataclasses.dataclass(frozen=True)
+class ModelShard:
+    """This rank's piece of a leaf that the rules split over ``"model"``:
+    entries ``[start, stop)`` of its tensor dim ``dim``, and ``group``, the
+    ``(mesh, mesh dim)`` of the ranks that hold the rest."""
+    dim: int
+    start: int
+    stop: int
+    group: tuple
+
+
+def model_shard(module, leaf: str) -> ModelShard | None:
+    """The ``"model"`` shard of ``module``'s parameter ``leaf`` as bound by
+    :func:`gather_on_use`, or None where the leaf is whole on every rank
+    (an unsharded model, a dim the fallback replicated, a model axis of
+    size 1)."""
+    x = getattr(module, "_bound", {}).get(leaf)
+    if x is None or not is_dtensor(x):
+        return None
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    if MODEL not in names:
+        return None
+    d = names.index(MODEL)
+    pl = x.placements[d]
+    if not pl.is_shard() or mesh.size(d) == 1:
+        return None
+    per = x.shape[pl.dim] // mesh.size(d)
+    r = mesh.get_local_rank(d)
+    return ModelShard(pl.dim, r * per, (r + 1) * per, (mesh, d))
+
+
+def _wait(x):
+    from torch.distributed import _functional_collectives as funcol
+    return x.wait() if isinstance(x, funcol.AsyncCollectiveTensor) else x
+
+
+def _all_reduce(x, op: str, group):
+    from torch.distributed import _functional_collectives as funcol
+    return _wait(funcol.all_reduce(x.contiguous(), op, group))
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+        from torch.distributed import _functional_collectives as funcol
+        mesh, d = group
+        ctx.dim, ctx.size = dim, x.shape[dim]
+        ctx.start = mesh.get_local_rank(d) * ctx.size
+        if x.is_cuda and dist.get_backend(mesh.get_group(d)) == "gloo":
+            # gloo gathers no CUDA tensor: the same values as the sum of
+            # the zero-padded pieces
+            shape = list(x.shape)
+            shape[dim] *= mesh.size(d)
+            whole = x.new_zeros(shape)
+            whole.narrow(dim, ctx.start, ctx.size).copy_(x)
+            return _all_reduce(whole, "sum", group)
+        return _wait(funcol.all_gather_tensor(x.contiguous(), dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.size), None, None
+
+
+def copy_to_model(x, shard: ModelShard | None):
+    """``x`` entering compute on ``shard``'s pieces (identity; its
+    gradient all-reduced over the group).  Identity without a shard."""
+    return x if shard is None else _CopyToModel.apply(x, shard.group)
+
+
+def reduce_from_model(x, shard: ModelShard | None):
+    """``x`` summed over ``shard``'s group (its gradient passes as it
+    is).  Identity without a shard."""
+    return x if shard is None else _ReduceFromModel.apply(x, shard.group)
+
+
+def gather_from_model(x, shard: ModelShard | None, dim: int | None = None):
+    """``x``, this rank's piece of ``shard``, gathered whole along ``dim``
+    (``shard.dim`` by default); its gradient is this rank's slice."""
+    if shard is None:
+        return x
+    dim = shard.dim if dim is None else dim % x.dim()
+    return _GatherFromModel.apply(x, dim, shard.group)
+
+
+def max_over_model(x, shard: ModelShard | None):
+    """The elementwise max of ``x`` over ``shard``'s group, outside
+    autograd (a softmax's shift)."""
+    return x if shard is None else _all_reduce(x.detach(), "max",
+                                               shard.group)
+
+
+def gather_local(x, grad_placements):
+    """A DTensor gathered over every mesh dim but ``"model"`` into a plain
+    tensor, this rank's ``"model"`` shard (a plain tensor passes).  Its
+    gradient flows back as ``grad_placements`` and autograd reduces it
+    into ``x``'s own layout (a reduce-scatter over ``"data"``)."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
     mesh = x.device_mesh
-    whole = x.redistribute(mesh, [Replicate()] * mesh.ndim)
-    return whole.to_local(grad_placements=grad_placements)
+    keep = [p if n == MODEL else Replicate()
+            for n, p in zip(mesh.mesh_dim_names, x.placements)]
+    return x.redistribute(mesh, keep).to_local(
+        grad_placements=grad_placements(x))
 
 
-def batch_placements(device_mesh) -> list:
-    """``Partial()`` on the batch dims of the mesh (gradients of a local
-    batch are partial sums over them), ``Replicate()`` elsewhere (every
-    rank of a ``"model"`` group computes the same rows)."""
+def leaf_grad_placements(x) -> list:
+    """The placements of a leaf's local gradient: ``Partial()`` on the
+    batch dims of size > 1 (a local batch's gradient is a partial sum over
+    them), the leaf's own placement on ``"model"`` (a shard's gradient is
+    its own; a replicated leaf's is whole and the same on every rank of
+    the group), ``Replicate()`` elsewhere."""
     from torch.distributed.tensor import Partial, Replicate
-    return [Partial() if n in BATCH_AXES else Replicate()
-            for n in device_mesh.mesh_dim_names]
+    mesh = x.device_mesh
+    out = []
+    for d, name in enumerate(mesh.mesh_dim_names):
+        if name == MODEL:
+            out.append(x.placements[d])
+        elif name in BATCH_AXES and mesh.size(d) > 1:
+            out.append(Partial())
+        else:
+            out.append(Replicate())
+    return out
 
 
 _GATHERING: dict = {}
@@ -387,32 +544,30 @@ _GATHERING: dict = {}
 
 def _gathering_class(cls, leaves: tuple):
     """A subclass of ``cls`` whose attributes ``leaves`` read the bound
-    tensors through :func:`gather_whole` (plain properties: no module is
+    tensors through :func:`gather_local` (plain properties: no module is
     called, so module hooks such as ``CommDebugMode``'s see nothing)."""
     key = (cls, leaves)
     if key not in _GATHERING:
         def prop(leaf):
-            return property(lambda self: gather_whole(
-                self._bound[leaf], self._grad_placements))
+            return property(lambda self: gather_local(
+                self._bound[leaf], leaf_grad_placements))
         _GATHERING[key] = type(f"Gathering{cls.__name__}", (cls,),
                                {leaf: prop(leaf) for leaf in leaves})
     return _GATHERING[key]
 
 
-def gather_on_use(model: torch.nn.Module, device_mesh) -> dict:
+def gather_on_use(model: torch.nn.Module) -> dict:
     """Make every parameter of ``model`` (a skeleton, e.g. on ``meta``)
-    read a bound DTensor gathered whole on each access.  Returns the slots
-    ``{name: (module, leaf)}`` for :func:`bind`.  The model's code, custom
-    ops and kernels then run on plain tensors as they do unsharded; under
-    remat the gather runs again in the recomputation."""
-    grad_pl = batch_placements(device_mesh)
+    read a bound DTensor through :func:`gather_local` on each access: its
+    ``"model"`` shard, gathered over the other mesh dims (again in remat's
+    recomputation).  Returns the slots ``{name: (module, leaf)}`` for
+    :func:`bind`; :func:`model_shard` reads a bound leaf's shard."""
     slots = {}
     for mod_name, mod in list(model.named_modules()):
         leaves = tuple(mod._parameters)
         if not leaves:
             continue
         mod._bound = dict(mod._parameters)
-        mod._grad_placements = grad_pl
         for leaf in leaves:
             del mod._parameters[leaf]
             slots[f"{mod_name}.{leaf}" if mod_name else leaf] = (mod, leaf)

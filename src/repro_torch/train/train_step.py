@@ -15,24 +15,28 @@ the host: the loss, the norm and the metrics stay on the device.
 
 * *storage follows the rules* (:mod:`repro_torch.runtime.sharding`):
   parameters and optimizer state are DTensors in the rules' layout (FSDP
-  over ``"data"``; heads, mlp, vocab and experts over ``"model"``), and
-  the global batch splits over ``("pod", "data")``;
-* *compute runs on gathered weights*: each weight is gathered whole into a
-  plain tensor where a layer reads it, again in remat's recomputation, and
-  kept for the backward, so the model's modules, custom ops and kernels run
-  as they do unsharded.  The gather's backward reduce-scatters each
-  gradient, summed over the batch axes, into its weight's layout, and the
-  optimizer updates the shards (AdamW touches only local elements;
-  Adafactor's factored means and update clip reduce over the mesh);
-* *the ``"model"`` axis shards storage only*: every rank of a ``"model"``
-  group computes the same rows.  Tensor-parallel compute across it, which
-  the reference gets from XLA's SPMD partitioner, is not ported (ROADMAP).
+  over ``"data"``; heads, mlp, vocab, experts and SSM heads over
+  ``"model"``), and the global batch splits over ``("pod", "data")``;
+* *compute is tensor-parallel over ``"model"``*: where a layer reads a
+  weight, it is gathered over the batch dims only (again in remat's
+  recomputation) and the rank keeps its ``"model"`` shard; the layers
+  compute on the local heads, MLP columns, vocab rows, experts and SSM
+  heads, with an all-reduce over ``"model"`` where a row-parallel product,
+  the vocab-parallel lookup and cross entropy, the gated SSM norm or a
+  gradient entering the sharded region needs one.  A leaf the
+  divisibility fallback replicated is computed whole on every rank of
+  its group (e.g. qwen2's 12 heads on a 16-wide axis).  Each weight's
+  gradient is its shard's, summed over the batch axes by the gather's
+  backward (a reduce-scatter into its layout); the optimizer updates the
+  shards (AdamW touches only local elements; Adafactor's factored means
+  and update clip reduce over the mesh).
 
 An MoE layer in ``mode="train"`` sizes its capacity from the tokens it
 sees, so under a data-parallel split each shard drops its own overflow:
 the sharded step's gradients are the mean, over the data shards, of the
 unsharded step's on each shard, where the reference's SPMD step routes the
-global batch in every MoE layer.
+global batch in every MoE layer.  Within a ``"model"`` group every rank
+routes the same tokens, so the experts' split changes nothing there.
 
 :func:`constrain_like_params` pins a gradient tree to the parameters'
 layout when its leaves are DTensors (``rcfg.shard_grads``); on plain
@@ -164,12 +168,14 @@ def make_train_step(cfg: ModelConfig, rcfg: RunConfig, model,
     return train_step
 
 
-def sharded_model(cfg: ModelConfig, rcfg: RunConfig, mesh):
+def sharded_model(cfg: ModelConfig, rcfg: RunConfig):
     """(model, slots): the model's modules on ``meta`` whose parameters
-    read bound DTensors gathered whole on every access
-    (:func:`repro_torch.runtime.sharding.gather_on_use`)."""
+    read this rank's ``"model"`` shards of bound DTensors, gathered over
+    the other mesh dims on every access
+    (:func:`repro_torch.runtime.sharding.gather_on_use`); the layers then
+    compute tensor-parallel."""
     model = M.skeleton(cfg, getattr(torch, rcfg.param_dtype))
-    return model, shd.gather_on_use(model, mesh)
+    return model, shd.gather_on_use(model)
 
 
 def sharded_global_norm(tree: dict, mesh) -> torch.Tensor:
@@ -188,6 +194,47 @@ def sharded_global_norm(tree: dict, mesh) -> torch.Tensor:
                                           mesh.mesh_dim_names))
 
 
+def make_sharded_grads(cfg: ModelConfig, rcfg: RunConfig, mesh,
+                       rules: shd.ShardingRules = RULES):
+    """``grads(params, batch) -> (grads, stats, names)`` on ``mesh``: the
+    gradients of this rank's rows of the global ``batch`` as DTensors in
+    the parameters' layout (summed over the batch shards, so they are the
+    mean loss's), and ``stats`` [1 + len(names)], the loss and the metrics
+    ``names`` on this rank's rows (means over microbatches)."""
+    model, slots = sharded_model(cfg, rcfg)
+    _, shards = shd.batch_coordinate(mesh)
+    device = torch.device(mesh.device_type)
+    n = max(rcfg.microbatches, 1)
+
+    def grads_of(params, batch):
+        # autograd leaves aliasing the DTensors' shards
+        leaves = {k: p.detach().requires_grad_(True)
+                  for k, p in params.items()}
+        shd.bind(slots, leaves)
+        local = shd.batch_shard(_on(batch, device), mesh)
+        grads, stats = None, None
+        try:
+            for mb in (_split_microbatches(local, n) if n > 1 else [local]):
+                loss, metrics = M.loss_fn(cfg, rcfg, model, mb)
+                g = torch.autograd.grad(loss / (shards * n),
+                                        list(leaves.values()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+                g = dict(zip(leaves, (a.float() if n > 1 else a for a in g)))
+                grads = g if grads is None else {k: grads[k] + g[k]
+                                                 for k in grads}
+                s = torch.stack([loss.detach().float()] + [
+                    v.detach().float() for v in metrics.values()]) / n
+                stats = s if stats is None else stats + s
+        finally:
+            shd.bind(slots, params)
+        if rcfg.shard_grads:
+            grads = constrain_like_params(grads, rules)
+        return grads, stats, list(metrics)
+
+    return grads_of
+
+
 def make_sharded_train_step(cfg: ModelConfig, rcfg: RunConfig,
                             opt: Optimizer | None, mesh,
                             rules: shd.ShardingRules = RULES):
@@ -198,35 +245,15 @@ def make_sharded_train_step(cfg: ModelConfig, rcfg: RunConfig,
     on every rank, of which each rank computes its rows.  The loss and
     metrics are means over the batch shards; ``grad_norm`` is the global
     norm.  Every rank of the mesh calls it (the collectives are the
-    mesh's)."""
+    mesh's); the ranks of a ``"model"`` group compute tensor-parallel on
+    the same rows."""
     from torch.distributed.tensor.experimental import implicit_replication
     opt = opt or make_optimizer(rcfg)
-    model, slots = sharded_model(cfg, rcfg, mesh)
+    grads_of = make_sharded_grads(cfg, rcfg, mesh, rules)
     _, shards = shd.batch_coordinate(mesh)
-    device = torch.device(mesh.device_type)
-    n = max(rcfg.microbatches, 1)
 
     def train_step(params, opt_state, step, batch):
-        # autograd leaves aliasing the DTensors' shards
-        leaves = {k: p.detach().requires_grad_(True)
-                  for k, p in params.items()}
-        shd.bind(slots, leaves)
-        local = shd.batch_shard(_on(batch, device), mesh)
-        grads, stats = None, None
-        for mb in (_split_microbatches(local, n) if n > 1 else [local]):
-            loss, metrics = M.loss_fn(cfg, rcfg, model, mb)
-            g = torch.autograd.grad(loss / (shards * n),
-                                    list(leaves.values()),
-                                    allow_unused=True, materialize_grads=True)
-            g = dict(zip(leaves, (a.float() if n > 1 else a for a in g)))
-            grads = g if grads is None else {k: grads[k] + g[k]
-                                             for k in grads}
-            s = torch.stack([loss.detach().float()] + [
-                v.detach().float() for v in metrics.values()]) / n
-            stats = s if stats is None else stats + s
-        shd.bind(slots, params)
-        if rcfg.shard_grads:
-            grads = constrain_like_params(grads, rules)
+        grads, stats, names = grads_of(params, batch)
         stats = shd.all_reduce_over(stats, mesh, shd.BATCH_AXES) / shards
         gnorm = sharded_global_norm(grads, mesh)
         scale = torch.clamp_max(rcfg.grad_clip / gnorm.clamp_min(1e-12), 1.0)
@@ -234,7 +261,7 @@ def make_sharded_train_step(cfg: ModelConfig, rcfg: RunConfig,
             g.to_local().mul_(scale)
         with implicit_replication():
             params, opt_state = opt.update(grads, opt_state, params, step)
-        metrics = dict(zip(metrics, stats[1:]))
+        metrics = dict(zip(names, stats[1:]))
         metrics.update(loss=stats[0], grad_norm=gnorm, step=step + 1)
         return params, opt_state, metrics
 

@@ -195,3 +195,25 @@ def test_depth_extrapolation_is_exact(arch, kind):
                        torch.float32)
     assert (got["op_cost"]["flops"], got["op_cost"]["bytes_unfused"]) == \
         (real.flops, real.bytes)
+
+
+@pytest.mark.parametrize("arch,over,share", [
+    ("qwen2-1.5b", {}, 4),                       # every model dim splits
+    ("qwen2-1.5b", {"num_heads": 3, "num_kv_heads": 1}, None)])
+def test_device_cost_is_rank_zeros_share(arch, over, share):
+    """Rank 0's FLOPs of the tensor-parallel step on 2 x 2: a quarter of
+    the global count where the rules split every model dim; more where
+    the fallback replicates the heads, which the compute note names."""
+    import dataclasses
+    cfg = dataclasses.replace(smoke_model(ARCHS[arch]), **over)
+    rec = D.build_cell(arch, "train_4k", False, cfg=cfg,
+                       shape=SHAPES["train"], mesh=MESH)
+    dev, glob = rec["device_cost"], rec["op_cost"]
+    if share:
+        assert dev["dot_flops"] * share == glob["dot_flops"]
+        assert "no dim is replicated" in rec["compute_note"]
+    else:
+        assert glob["dot_flops"] / 4 < dev["dot_flops"] < glob["dot_flops"]
+        assert "heads 3, kv_heads 1" in rec["compute_note"]
+    t = R.terms(rec)
+    assert t["t_compute_device"] == dev["flops"] / R.PEAK_FLOPS

@@ -15,8 +15,10 @@ against the reference's, on the CPU.
 * **Placements.** On a ``fake`` process group of 512 ranks, a dim
   sharded over ``("pod", "data")`` splits pod-major, as in JAX.
 * **The sharded step.** 2 x 2 gloo CPU ranks (4 spawned ranks, one torch
-  thread each) run 2 f32 steps of ``make_sharded_train_step`` with
-  parameters and AdamW state as DTensors in the training rules' layout:
+  thread each) run 2 f32 steps of ``make_sharded_train_step`` (computing
+  tensor-parallel over ``"model"``; ``tests/test_torch_tp.py`` covers
+  every fallback) with parameters and AdamW state as DTensors in the
+  training rules' layout:
   smoke qwen2 against the unsharded ``make_train_step`` on the whole
   global batch, smoke phi3.5 (MoE) against the mean, over the two data
   shards, of the unsharded step's gradients on each shard (an MoE layer
