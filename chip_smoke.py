@@ -185,9 +185,26 @@ Phases, one or more lines each:
    logits and SSM states within 1e-4 of the largest against the
    one-process prefill; (c) the dry run's train_4k cells of qwen2-1.5b,
    mamba2-780m, phi3.5-moe and jamba on 16 x 16, priced on the
-   tensor-parallel step (collective and compute seconds a device).
+   tensor-parallel step (collective and compute seconds a device);
+16. the sequence over ``"model"``, after phase 15, on two gloo ranks
+   sharing ``cuda:0`` as a ``(data 1, model 2)`` mesh: (a) phase 15a's
+   phi3.5 step with ``seq_parallel=True`` (each rank 1,024 of the 2,048
+   positions between layers, attention on them with every head; the
+   MLP, experts and vocab on their shards over the gathered sequence),
+   batch 0's gradients against the unsharded ones (rtol 1e-4 / atol 1e-6,
+   every element), the first update against AdamW on its own gradients,
+   2 steps, ms a step, GiB a rank, the count kernel's launches; (b)
+   mamba2-780m whole, f32, a sequence-parallel prefill of 2 x 2048 (the
+   SSD kernel on each rank's 24 heads over the gathered sequence),
+   logits within 1e-4 of the largest against the one-process prefill;
+   (c) qwen2-1.5b whole, bf16, a tensor-parallel prefill of 2 x 2048 and
+   16 greedy tokens decoded on a cache split on ``cache_seq`` (1,032 of
+   2,064 slots a rank), the tokens against the one-process
+   ``generate()``'s, decode ms a token, cache GiB a rank; (d) the dry
+   run's four train_4k cells with ``--seq-parallel`` beside 15c's, and
+   14c's qwen2 decode_32k cell, which reads its cache in place.
 
-Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14 and 15 (run in that order) are
+Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14, 15 and 16 (run in that order) are
 the main path: each zeroes the kernels' launch counters before it (each
 part of phase 13 before it) and reads them after, and fails if a kernel
 of its path was not launched (phase 6: the
@@ -199,7 +216,8 @@ bucket count once per MoE layer per forward of its ``generate()``; phase
 phase 14: the bucket count as remat implies, in the sharded steps and in
 each pipeline stage, whose counters its processes report; phase 15: the
 bucket count as remat implies on each rank's steps, the SSD kernel once
-per layer on each rank's prefill).
+per layer on each rank's prefill; phase 16: the same on the
+sequence-parallel step and prefill).
 Every wrapper launches its kernel through a dispatched op
 (``torch.ops.repro_torch.*``), so the call ms below include the op's
 dispatch.  Then one
@@ -3468,10 +3486,11 @@ def phase14_pipeline(device):
 
 
 def start_dryrun(cells, out):
-    """One ``python -m repro_torch.launch.dryrun`` process a cell, all
-    started at once at the lowest priority (host work on fake tensors,
-    beside the card's phases, on the cores this process leaves idle);
-    ``finish_dryrun`` waits for them."""
+    """One ``python -m repro_torch.launch.dryrun`` process a cell (``(arch,
+    shape, multi_pod)``, and a tuple of more options as a fourth entry
+    where there is one), all started at once at the lowest priority (host
+    work on fake tensors, beside the card's phases, on the cores this
+    process leaves idle); ``finish_dryrun`` waits for them."""
     import os
     import shutil
     shutil.rmtree(out, ignore_errors=True)
@@ -3479,12 +3498,14 @@ def start_dryrun(cells, out):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
     procs = []
-    for arch, shape, multi_pod in cells:
+    for arch, shape, multi_pod, *more in cells:
+        flags = list(more[0]) if more else []
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--out", str(out)]
+               arch, "--shape", shape, "--out", str(out)] + flags
         if multi_pod:
             cmd.append("--multi-pod")
-        log = open(out / f"{arch}__{shape}__{int(multi_pod)}.log", "w")
+        log = open(out / f"{arch}__{shape}__{int(multi_pod)}"
+                   f"{''.join(flags)}.log", "w")
         procs.append((arch, shape, multi_pod,
                       subprocess.Popen(cmd, stdout=log,
                                        stderr=subprocess.STDOUT, env=env,
@@ -3518,17 +3539,20 @@ def stop_dryrun(procs):
         log.close()
 
 
-def dryrun_rows(label, cells, out):
-    """Print each cell's record and its roofline row; returns the rows."""
+def dryrun_rows(label, cells, out, tag="", quiet=False):
+    """Print each cell's record (``tag``: the suffix its ``--tag`` gave
+    it) and its roofline row; returns the rows (``quiet``: no print)."""
     from repro_torch.launch import roofline as R
     rows = []
-    for arch, shape, multi_pod in cells:
+    for arch, shape, multi_pod, *_ in cells:
         mesh = "2x16x16" if multi_pod else "16x16"
-        path = out / f"{arch}__{shape}__{mesh}.json"
+        path = out / f"{arch}__{shape}__{mesh}{tag}.json"
         if not path.exists():
             raise AssertionError(f"{label}: no dry-run record {path.name}")
         rec = json.loads(path.read_text())
         rows.append(rec)
+        if quiet:
+            continue
         tot = rec["collectives"]["totals"]
         t = R.terms(rec)
         say(f"{label}: {arch} x {shape} on {rec['mesh']}: host s op_cost "
@@ -3546,7 +3570,7 @@ def dryrun_rows(label, cells, out):
             f"device {t['t_compute_device']:.4f} (global/chips "
             f"{t['t_compute']:.4f}), collective s {t['t_coll']:.4f}, "
             f"{t['dominant']}-bound; {rec['compute_note']}")
-    for line in R.to_markdown(rows).splitlines():
+    for line in ([] if quiet else R.to_markdown(rows).splitlines()):
         say(f"{label}: {line}")
     return rows
 
@@ -3613,6 +3637,33 @@ def moe_routes():
         moe_layer._route = route
 
 
+@contextlib.contextmanager
+def seq_crossings():
+    """``{name: calls}`` of the sequence crossings (``gather_seq``,
+    ``scatter_seq``, ``split_seq``) while the context is open: the
+    sequence-parallel program ran where they are not 0 (gloo on CUDA
+    tensors carries them as all-reduces, so the collectives alone do not
+    tell)."""
+    from repro_torch.runtime import sharding as shd
+    names = ("gather_seq", "scatter_seq", "split_seq")
+    seen = dict.fromkeys(names, 0)
+    orig = {n: getattr(shd, n) for n in names}
+
+    def counted(name):
+        def fn(x, shard):
+            if shard is not None:
+                seen[name] += 1
+            return orig[name](x, shard)
+        return fn
+    for n in names:
+        setattr(shd, n, counted(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(shd, n, orig[n])
+
+
 def _adamw_leaf(rcfg, p, g, scale, step=0):
     """``p`` after the plain AdamW update of ``make_train_step``'s first
     step on gradient ``g`` clipped by ``scale`` (elementwise, so a shard's
@@ -3626,11 +3677,13 @@ def _adamw_leaf(rcfg, p, g, scale, step=0):
     return p
 
 
-def _phase15a(mesh, device, out_dir):
-    """This rank's part of phase 15a: phi3.5 at full width (14a's config)
-    on its ``"model"`` shards: the gradients of batch 0 against the
-    unsharded ones, then 2 tensor-parallel AdamW steps against 14a's
+def _phase15a(mesh, device, out_dir, seq_parallel=False):
+    """This rank's part of phase 15a (16a with ``seq_parallel``): phi3.5
+    at full width (14a's config) on its ``"model"`` shards: the gradients
+    of batch 0 against the unsharded ones (in ``out_dir``), then 2
+    tensor-parallel (sequence-parallel) AdamW steps against 14a's
     unsharded run."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -3644,6 +3697,7 @@ def _phase15a(mesh, device, out_dir):
                                               make_sharded_train_step,
                                               sharded_global_norm)
     cfg, rcfg = _phi_train_cfg()
+    rcfg = dataclasses.replace(rcfg, seq_parallel=seq_parallel)
     opt = make_optimizer(rcfg)
     model = M.init(cfg, SEED, getattr(torch, rcfg.param_dtype),
                    device=device)
@@ -3656,8 +3710,9 @@ def _phase15a(mesh, device, out_dir):
 
     # (1) batch 0's gradients against the unsharded ones, leaf by leaf,
     # and the routing; then the first update the step should make of them
-    with moe_routes() as routes:
+    with moe_routes() as routes, seq_crossings() as crossings:
         grads, _, _ = make_sharded_grads(cfg, rcfg, mesh)(params, batches[0])
+    out["crossings"] = crossings
     want = torch.load(out_dir / "oracle15a_grads.pt", mmap=True)
     ref = torch.load(out_dir / "oracle15a_ref.pt")
     g_err = g_over = 0
@@ -3727,9 +3782,11 @@ def _phase15a(mesh, device, out_dir):
     return out
 
 
-def _phase15b(mesh, device, out_dir):
-    """This rank's part of phase 15b: mamba2-780m's prefill on its 24 of
-    48 SSM heads, against the one-process prefill."""
+def _phase15b(mesh, device, out_dir, seq_parallel=False):
+    """This rank's part of phase 15b (16b with ``seq_parallel``):
+    mamba2-780m's prefill on its 24 of 48 SSM heads, against the
+    one-process prefill (in ``out_dir``)."""
+    import dataclasses
     import torch
     import torch.distributed as dist
     from repro_torch.configs.archs import ARCHS
@@ -3739,7 +3796,8 @@ def _phase15b(mesh, device, out_dir):
     from repro_torch.runtime import sharding as shd
     from repro_torch.train.train_step import sharded_model
     cfg = ARCHS[MAMBA]
-    rcfg = _tp_prefill_rcfg(cfg)
+    rcfg = dataclasses.replace(_tp_prefill_rcfg(cfg),
+                               seq_parallel=seq_parallel)
     model = M.init(cfg, SEED, device=device)
     params = shd.shard_tree(dict(model.named_parameters()),
                             shd.ShardingRules(shd.SERVE_TP_RULES), mesh)
@@ -3758,8 +3816,9 @@ def _phase15b(mesh, device, out_dir):
     ssd_chunk_kernel.launches = 0
     ssm.ssd_chunk_kernel = record
     try:
-        (logits, cache), sec = timed(lambda: M.prefill(
-            cfg, rcfg, tp, {"tokens": tokens}))
+        with seq_crossings() as crossings:
+            (logits, cache), sec = timed(lambda: M.prefill(
+                cfg, rcfg, tp, {"tokens": tokens}))
     finally:
         ssm.ssd_chunk_kernel = ssd_chunk_kernel
     launches = ssd_chunk_kernel.launches
@@ -3772,7 +3831,8 @@ def _phase15b(mesh, device, out_dir):
                                                      * per].to(device))
     return {"ms": sec * 1e3, "launches": launches, "grid": seen,
             "heads": per, "logit_err": d_logits, "state_err": d_state,
-            "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "crossings": crossings}
 
 
 def _tp_prefill_rcfg(cfg):
@@ -3977,6 +4037,274 @@ def phase_tensor_parallel(device, unsharded, dryrun):
     return launches
 
 
+# -- phase 16: the sequence over "model" -----------------------------------
+
+SP_DECODE = (2, 2048, 16)          # phase 16c: qwen2, batch x prompt + new
+SP_DRYRUN_CELLS = TP_DRYRUN_CELLS  # phase 16d: with --seq-parallel
+SP_TAG = "__sp"                    # their records' suffix
+SP_TIMEOUT_S = 600
+
+
+def _sp_decode_tokens(cfg, device):
+    import torch
+    b, s, _ = SP_DECODE
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def _phase16c(mesh, device, out_dir):
+    """This rank's part of phase 16c: qwen2-1.5b whole, bf16, on its
+    ``SERVE_TP_RULES`` shards: a tensor-parallel prefill, the cache placed
+    on ``cache_seq`` (this rank's W/2 slots of both kv heads), 16 greedy
+    tokens; then the decode alone, timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import model as M
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.serve.serve_step import generate, sample
+    from repro_torch.train.train_step import sharded_model
+    b, s, new = SP_DECODE
+    cfg, rcfg, model = _lm(QWEN, device, seq=s + new, batch=b)
+    params = shd.shard_tree(dict(model.named_parameters()),
+                            shd.ShardingRules(shd.SERVE_TP_RULES), mesh)
+    del model
+    torch.cuda.empty_cache()
+    tp, slots = sharded_model(cfg, rcfg)
+    shd.bind(slots, params)
+    tokens = _sp_decode_tokens(cfg, device)
+    dist.barrier()
+    toks, gen_s = timed(lambda: generate(cfg, rcfg, tp, {"tokens": tokens},
+                                         max_new_tokens=new, device=device))
+    logits, cache = M.prefill(cfg, rcfg, tp, {"tokens": tokens},
+                              max_len=s + new)
+    k = cache[0]["k"]
+    cache_gib = sum(x.numel() * x.element_size() for _, x in
+                    shd.tree_items(cache)) / 2 ** 30
+    tok = sample(logits)
+    dist.barrier()
+
+    def decode():
+        c, t = cache, tok
+        for i in range(new):
+            lg, c = M.decode_step(cfg, rcfg, tp, c, t, s + i)
+            t = sample(lg)
+    dec_ms = wall_s(decode) / new * 1e3
+    want = torch.load(out_dir / "oracle16c.pt")["tokens"]
+    same = toks.cpu() == want
+    return {"tokens": toks.cpu().tolist(), "equal": bool(same.all()),
+            "first_diff": [int((~r).nonzero()[0]) if not r.all() else -1
+                           for r in same],
+            "gen_s": gen_s, "decode_ms": dec_ms, "cache_gib": cache_gib,
+            "k_shape": list(k.shape), "w": int(cache[0]["pos"].shape[-1]),
+            "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _phase16_rank(rank, world, port, out_dir):
+    """Gloo rank ``rank`` of phase 16's ``(1, world)`` mesh on ``cuda:0``;
+    reads phase 15's oracles and writes its results to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out_dir = pathlib.Path(out_dir)
+    oracles = ROOT / "build" / "phase15"
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, world)
+        torch.cuda.reset_peak_memory_stats()
+        out["a"] = _phase15a(mesh, device, oracles, seq_parallel=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["b"] = _phase15b(mesh, device, oracles, seq_parallel=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["c"] = _phase16c(mesh, device, out_dir)
+    except BaseException as e:   # noqa: BLE001 — reported by the parent
+        import traceback
+        out["error"] = "".join(traceback.format_exception(e))
+    finally:
+        dist.destroy_process_group()
+    with open(out_dir / f"rank{rank}.json", "w") as fh:
+        json.dump(out, fh)
+
+
+def phase16_oracles(device, out_dir):
+    """16c's one-process ``generate()`` (qwen2 whole, bf16) on disk, with
+    its seconds and, per generated token, the gap between the two largest
+    logits of its step (how near a tie each greedy choice was)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serve.serve_step import generate
+    b, s, new = SP_DECODE
+    cfg, rcfg, model = _lm(QWEN, device, seq=s + new, batch=b)
+    tokens = _sp_decode_tokens(cfg, device)
+    toks, sec = timed(lambda: generate(cfg, rcfg, model, {"tokens": tokens},
+                                       max_new_tokens=new, device=device))
+    gaps = []
+    with torch.no_grad():
+        logits, cache = M.prefill(cfg, rcfg, model, {"tokens": tokens},
+                                  max_len=s + new)
+        for i in range(new):
+            top = logits[:, 0, :cfg.vocab_size].float().topk(2).values
+            gaps.append((top[:, 0] - top[:, 1]).tolist())
+            if i + 1 < new:
+                logits, cache = M.decode_step(cfg, rcfg, model, cache,
+                                              toks[:, i:i + 1], s + i)
+    torch.save({"tokens": toks.cpu(), "gaps": gaps}, out_dir /
+               "oracle16c.pt")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return sec, gaps
+
+
+def phase_sequence_parallel(device, dryrun):
+    """Phase 16: the sequence over ``"model"`` on two gloo ranks sharing
+    the card ((a) the phi3.5 step, (b) the mamba2 prefill, (c) qwen2's
+    decode on a ``cache_seq``-split cache), then the dry-run cells of
+    16d.  Returns the bucket-count and SSD launches of the ranks' main
+    path."""
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs.archs import ARCHS
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "phase16"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for p in out_dir.glob("rank*.json"):
+        p.unlink()
+    one_s, gaps = phase16_oracles(device, out_dir)
+    port = _free_port()
+    t0 = time.perf_counter()
+    mpc = mp.get_context("spawn")
+    procs = [mpc.Process(target=_phase16_rank,
+                         args=(r, TP_WORLD, port, str(out_dir)))
+             for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(SP_TIMEOUT_S - (time.perf_counter() - t0), 1))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    t_ranks = time.perf_counter() - t0
+    paths = [out_dir / f"rank{r}.json" for r in range(TP_WORLD)]
+    if not all(p.exists() for p in paths):
+        raise AssertionError(f"phase 16: a rank wrote no result (exit codes "
+                             f"{[p.exitcode for p in procs]})")
+    ranks = [json.loads(p.read_text()) for p in paths]
+    for r in ranks:
+        if "error" in r:
+            raise AssertionError(f"phase 16: rank {r['rank']}:\n"
+                                 f"{r['error']}")
+    cfg, _ = _phi_train_cfg()
+    mamba, qwen = ARCHS[MAMBA], ARCHS[QWEN]
+    b, s = TRAIN_BATCH
+    moe_layers = sum(sp.mlp == "moe" for sp in cfg.full_pattern) \
+        * cfg.num_blocks
+    ok = True
+    for r in ranks:
+        a, bb, c = r["a"], r["b"], r["c"]
+        say(f"phase 16a: rank {r['rank']}: {PHI} at d_model {cfg.d_model}, "
+            f"{cfg.num_layers} layers, f32, remat full, AdamW, {b} x {s} "
+            f"tokens, seq_parallel on (data 1, model {TP_WORLD}): "
+            f"{s // TP_WORLD} positions a rank between layers; sequence "
+            f"crossings in batch 0's gradients {a['crossings']}; its "
+            f"gradients vs the unsharded ones {a['grad_err']:.3g}, "
+            f"{a['grad_over']} of {a['elements']} elements outside rtol "
+            f"{GRAD_RTOL:g} / atol {GRAD_ATOL:g}; MoE assignments differing "
+            f"{a['route_diff']}; the first step's parameters vs AdamW on "
+            f"its own gradients {a['step1_own']:.3g} (bound "
+            f"{TP_PARAM_ATOL:g}), vs AdamW on the unsharded gradients "
+            f"{a['step1_oracle']:.3g}; {SHARD_STEPS} steps: ms a step "
+            f"{', '.join(f'{x:.1f}' for x in a['ms'])}; losses "
+            f"{', '.join(f'{x:.6f}' for x in a['losses'])}; grad norms "
+            f"{', '.join(f'{x:.6f}' for x in a['grad_norms'])}; parameters "
+            f"after {SHARD_STEPS} steps vs 14a's {a['param_err']:.3g}; "
+            f"collectives a step {a['counts']}; peak {a['peak']:.2f} GiB "
+            f"a rank; bucket_count launches {a['launches']} (2 x "
+            f"{moe_layers} MoE layers x {SHARD_STEPS} steps)")
+        ok &= (a["grad_over"] == 0 and a["step1_own"] <= TP_PARAM_ATOL
+               and not any(a["route_diff"]) and a["sharded"] > 0
+               and a["crossings"]["scatter_seq"] > 0
+               and all(math.isfinite(x) for x in a["losses"])
+               and a["launches"] == 2 * moe_layers * SHARD_STEPS)
+        say(f"phase 16b: rank {r['rank']}: {MAMBA} whole, f32, "
+            f"sequence-parallel prefill {TP_PREFILL[0]} x {TP_PREFILL[1]} "
+            f"({TP_PREFILL[1] // TP_WORLD} positions a rank between "
+            f"layers, {bb['heads']} SSM heads over the whole sequence; "
+            f"crossings {bb['crossings']}): {bb['ms']:.1f} ms; SSD kernel "
+            f"grid G {sorted(set(bb['grid']))} ({bb['launches']} launches); "
+            f"logits vs the one-process prefill {bb['logit_err']:.3g} of "
+            f"the largest (bound {TP_PREFILL_BOUND:g}), its SSM states "
+            f"{bb['state_err']:.3g}; peak {bb['peak']:.2f} GiB")
+        cells = TP_PREFILL[0] * (TP_PREFILL[1] // 128) * bb["heads"]
+        ok &= (bb["logit_err"] <= TP_PREFILL_BOUND
+               and bb["crossings"]["scatter_seq"] > 0
+               and set(bb["grid"]) == {cells}
+               and bb["launches"] == mamba.num_layers)
+        db, ds, dn = SP_DECODE
+        say(f"phase 16c: rank {r['rank']}: {QWEN} whole, bf16, "
+            f"tensor-parallel prefill {db} x {ds} + {dn} greedy tokens on "
+            f"a cache split on cache_seq: layer 0's k {c['k_shape']} of W "
+            f"{c['w']} (kv heads {qwen.num_kv_heads}); cache "
+            f"{c['cache_gib']:.3f} GiB a rank; generate() {c['gen_s']:.2f} "
+            f"s (one process {one_s:.2f}); decode {c['decode_ms']:.2f} "
+            f"ms/token; tokens equal the one-process generate()'s: "
+            f"{c['equal']} (first difference per row {c['first_diff']}); "
+            f"peak {c['peak']:.2f} GiB")
+        ok &= (c["equal"] and c["k_shape"][2] * TP_WORLD == c["w"]
+               and c["k_shape"][3] == qwen.num_kv_heads)
+    say(f"phase 16c: the one-process run's top-2 logit gaps per token "
+        f"(smallest per step) {[round(min(g), 4) for g in gaps]}; "
+        f"gloo moves CUDA tensors through host memory, so these times are "
+        f"not sequence-parallel times on a fabric; ranks {t_ranks:.1f} s "
+        f"with their start")
+    if not ok:
+        raise AssertionError("phase 16: the sequence over model vs one "
+                             "process")
+    procs, out = dryrun
+    finish_dryrun(procs, DRYRUN_TIMEOUT_S)
+    rows = dryrun_rows("phase 16d", SP_DRYRUN_CELLS, out, SP_TAG)
+    tp = {(r["arch"], r["shape"]): r for r in dryrun_rows(
+        "phase 16d (15c, for comparison)", SP_DRYRUN_CELLS, out, quiet=True)}
+    from repro_torch.launch import roofline as R
+    for rec in rows:
+        base = tp[(rec["arch"], rec["shape"])]
+        t_sp, t_tp = R.terms(rec), R.terms(base)
+
+        def wire(r, kind):
+            return r["collectives"]["per_op"][kind]["wire_bytes"] / 1e9
+        say(f"phase 16d: {rec['arch']} x {rec['shape']}: collective s "
+            f"{t_sp['t_coll']:.4f} with --seq-parallel, "
+            f"{t_tp['t_coll']:.4f} without; compute s a device "
+            f"{t_sp['t_compute_device']:.4f} / "
+            f"{t_tp['t_compute_device']:.4f}; wire GB a device: all-reduce "
+            f"{wire(rec, 'all-reduce'):.3f} / {wire(base, 'all-reduce'):.3f}"
+            f", all-gather {wire(rec, 'all-gather'):.3f} / "
+            f"{wire(base, 'all-gather'):.3f}, reduce-scatter "
+            f"{wire(rec, 'reduce-scatter'):.3f} / "
+            f"{wire(base, 'reduce-scatter'):.3f}")
+    dec = dryrun_rows("phase 16d", [c for c in DRYRUN_CELLS
+                                    if c[1] == "decode_32k"], out)
+    if len(rows) != len(SP_DRYRUN_CELLS) or not dec:
+        raise AssertionError("phase 16d: a dry-run record is missing")
+    launches = {"bucket_count": sum(r["a"]["launches"] for r in ranks),
+                "ssd_chunk": sum(r["b"]["launches"] for r in ranks)}
+    say(f"phase 16: done in {time.perf_counter() - t_phase:.1f} s "
+        f"(ranks {t_ranks:.1f} s); launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4001,18 +4329,27 @@ def main() -> int:
     say(f"phase 2: built {sorted(reports) or 'nothing (cached)'} in "
         f"{time.perf_counter() - t0:.1f} s; ptxas spill lines with loads: "
         f"{len(regs)}")
-    # the dry-run cells of 14c and 15c, on the cores the phases leave idle
+    # the dry-run cells of 14c, 15c and 16d, on the cores the phases leave
+    # idle
     out = ROOT / "build" / "phase14_dryrun"
-    dryrun = start_dryrun(sorted(set(DRYRUN_CELLS + TP_DRYRUN_CELLS)), out)
+    dryrun = start_dryrun(dryrun_cells(), out)
     try:
         return _phases(device, dryrun, out)
     finally:
         stop_dryrun(dryrun)
 
 
+def dryrun_cells() -> list:
+    """The dry-run cells of 14c, 15c and 16d (these with
+    ``--seq-parallel``), one process each."""
+    sp = ("--seq-parallel", "--tag", SP_TAG)
+    return sorted(set(DRYRUN_CELLS + TP_DRYRUN_CELLS)) + [
+        cell + (sp,) for cell in SP_DRYRUN_CELLS]
+
+
 def _phases(device, dryrun, out) -> int:
-    """Phases 3 to 15 and the last two lines, beside the dry-run cells of
-    14c and 15c in the background."""
+    """Phases 3 to 16 and the last two lines, beside the dry-run cells of
+    14c, 15c and 16d in the background."""
     import torch
     from repro_torch.graphs.algorithms.bfs import bfs, bfs_reference
     from repro_torch.graphs.algorithms.pagerank import (pagerank,
@@ -4067,8 +4404,10 @@ def _phases(device, dryrun, out) -> int:
     torch.cuda.empty_cache()
     parallel_launches, unsharded = phase_parallel(device)
     tp_launches = phase_tensor_parallel(device, unsharded, (dryrun, out))
-    mamba_launches += tp_launches["ssd_chunk"]
-    parallel_launches += tp_launches["bucket_count"]
+    sp_launches = phase_sequence_parallel(device, (dryrun, out))
+    mamba_launches += tp_launches["ssd_chunk"] + sp_launches["ssd_chunk"]
+    parallel_launches += tp_launches["bucket_count"] + \
+        sp_launches["bucket_count"]
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches)) for name in KERNELS}

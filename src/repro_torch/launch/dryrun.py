@@ -18,14 +18,16 @@ this process as rank 0 and destroyed after each cell:
   reference's ``sharded_bytes``;
 * **collectives**: what DTensor and the sharded run issue on rank 0 —
   the tensor-parallel train step of
-  ``train_step.make_sharded_train_step``, or ``model.prefill`` /
-  ``model.decode_step`` on this rank's ``"model"`` shards of the weights
-  and its batch rows (the cache redistributed to its batch rows and kv
-  and SSM heads, and placed back) — counted by ``CommDebugMode`` with
-  each collective's result bytes and wire bytes per device by the
-  reference's ring formulas: weights gathered over the batch axes,
-  gradients reduce-scattered over them, activations all-reduced over
-  ``"model"``;
+  ``train_step.make_sharded_train_step``, or ``model.prefill`` (its
+  cache placed in the rules' layout at the end) / ``model.decode_step``
+  on this rank's ``"model"`` shards of the weights, its batch rows and
+  its piece of the cache in the rules' layout (a ring split on
+  ``cache_seq`` read in place) — counted by ``CommDebugMode`` with each
+  collective's result bytes and wire bytes per device by the reference's
+  ring formulas: weights gathered over the batch axes, gradients
+  reduce-scattered over them, activations all-reduced over ``"model"``,
+  or, with ``--seq-parallel``, the sequence all-gathered and
+  reduce-scattered over it;
 * **FLOPs per device** (``device_cost``): the ops rank 0 runs in that
   sharded run, priced as ``op_cost`` is; a layer the divisibility
   fallback replicated over ``"model"`` counts whole on every card of the
@@ -196,94 +198,12 @@ def _zeros(tree):
         lambda _, x: torch.zeros(x.shape, dtype=x.dtype), tree)
 
 
-# the cache dims a tensor-parallel layer reads split: the batch over the
-# batch axes, the kv and SSM heads over "model" where the rules split the
-# weights' heads (the cache's own layout gives "model" to cache_seq)
-_TP_CACHE_AXES = ("batch", "kv_heads", "ssm_heads")
-
-
-def _tp_layout(rules, path, shape, mesh):
-    """Placements of a cache leaf in the layout the tensor-parallel layers
-    read: batch and heads split, the sequence whole."""
-    axes = shd.resolve_axes(path, len(shape))
-    only = tuple(a if a in _TP_CACHE_AXES else None for a in axes)
-    return rules.placements_for(only, shape, mesh)
-
-
-def _conv_x_range(cfg, rules, mesh):
-    """This rank's x channels of a Mamba2 conv state [.., x | B | C]: its
-    SSM heads' channels where the rules split the heads, else all."""
-    spec = rules.spec_for(("ssm_heads",), (cfg.ssm_heads,), mesh)
-    if not spec:
-        return 0, cfg.d_inner
-    d = list(mesh.mesh_dim_names).index("model")
-    per = cfg.d_inner // mesh.size(d)
-    r = mesh.get_local_rank(d)
-    return r * per, (r + 1) * per
-
-
-def _gather_cache(cache, rules, mesh, cfg):
-    """The cache, in the rules' layout, redistributed to the plain local
-    tensors the tensor-parallel decode reads: this rank's batch rows and
-    heads, every slot; a conv state holds the rank's x channels, then B
-    and C."""
-    lo, hi = _conv_x_range(cfg, rules, mesh)
-
-    def get(path, c):
-        keep = _tp_layout(rules, path, c.shape, mesh)
-        local = c.redistribute(mesh, keep).to_local()
-        if path.rpartition(".")[2] == "conv":
-            local = torch.cat([local[..., lo:hi],
-                               local[..., cfg.d_inner:]], dim=-1)
-        return local
-    return shd.tree_map_with_path(get, cache)
-
-
-def _place_cache(cache, rules, mesh, global_batch: int, cfg):
-    """A cache of this rank's batch rows and heads (as the
-    tensor-parallel layers write it) as DTensors in the rules' layout."""
-    from torch.distributed.tensor import DTensor
-    lo, hi = _conv_x_range(cfg, rules, mesh)
-
-    def dtensor(c, placements, shape):
-        stride, n = [], 1
-        for d in reversed(shape):
-            stride.insert(0, n)
-            n *= d
-        return DTensor.from_local(c, mesh, placements, run_check=False,
-                                  shape=torch.Size(shape),
-                                  stride=tuple(stride))
-
-    def put(path, c):
-        axes = shd.resolve_axes(path, c.dim())
-        shape = list(c.shape)
-        if "batch" in axes:
-            shape[axes.index("batch")] = global_batch
-        if path.rpartition(".")[2] == "conv":
-            # the x channels whole (gathered over "model"), then B and C
-            xs = shape[:-1] + [cfg.d_inner]
-            rows = _tp_layout(rules, path, xs, mesh)
-            split = rules.placements_for((None, "batch", None, "ssm_inner"),
-                                         xs, mesh)
-            x = dtensor(c[..., :hi - lo], split if hi - lo < cfg.d_inner
-                        else rows, xs).redistribute(mesh, rows).to_local()
-            c = torch.cat([x, c[..., hi - lo:]], dim=-1)
-            shape[-1] = c.shape[-1]
-        else:
-            for a, name in enumerate(axes):
-                if name in ("kv_heads", "ssm_heads"):
-                    shape[a] = {"kv_heads": cfg.num_kv_heads,
-                                "ssm_heads": cfg.ssm_heads}[name]
-        return dtensor(c, _tp_layout(rules, path, shape, mesh),
-                       shape).redistribute(
-            mesh, rules.placements_for(axes, shape, mesh))
-    return shd.tree_map_with_path(put, cache)
-
-
-def compute_note(cfg, rules, sizes: dict) -> str:
+def compute_note(cfg, rules, sizes: dict, seq_parallel: bool = False
+                 ) -> str:
     """What each card of a cell computes: its ``"model"`` shard of every
     dim the rules split, and whole the dims the divisibility fallback
-    replicated on a ``"model"`` axis of ``sizes``."""
+    replicated on a ``"model"`` axis of ``sizes``; with ``seq_parallel``,
+    attention and the norms on its share of the positions."""
     mesh = type("Sizes", (), {"shape": sizes})()
     dims = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
             "mlp": cfg.d_ff if any(sp.mlp == "dense"
@@ -293,7 +213,11 @@ def compute_note(cfg, rules, sizes: dict) -> str:
     whole = [f"{name} {n}" for name, n in dims.items()
              if n and not rules.spec_for((name,), (n,), mesh)]
     n_model = sizes.get("model", 1)
-    return ("tensor-parallel over model: each card computes its 1/"
+    sp = (f"sequence-parallel over model where the sequence divides: "
+          f"attention (every head, the weights read whole) and the norms "
+          f"on each card's 1/{n_model} of the positions; "
+          if seq_parallel else "")
+    return (sp + "tensor-parallel over model: each card computes its 1/"
             f"{n_model} of the heads, MLP, vocab, experts and SSM heads "
             "and its batch rows; "
             + (f"whole on every card of a model group (the fallback "
@@ -371,16 +295,13 @@ def sharded_run(cfg, rcfg, shape, mesh, rules, param_dtype):
     local = shd.batch_shard(batch, mesh)
     if shape.kind == "prefill":
         with log:
-            _, cache = M.prefill(cfg, rcfg, model, local)
-            _place_cache(cache, RULES, mesh, shape.global_batch, cfg)
+            M.prefill(cfg, rcfg, model, local, max_len=shape.seq_len)
         return state, collective_stats(log)
-    cache = shd.shard_tree(_zeros(M.cache_specs(cfg, rcfg, shape)), RULES,
-                           mesh)
+    cache = M.init_cache(cfg, rcfg, local["token"].shape[0], shape.seq_len,
+                         device="cpu", model=model)
     with log:
-        _, new = M.decode_step(cfg, rcfg, model,
-                               _gather_cache(cache, RULES, mesh, cfg),
-                               local["token"], shape.seq_len - 1)
-        _place_cache(new, RULES, mesh, shape.global_batch, cfg)
+        M.decode_step(cfg, rcfg, model, cache, local["token"],
+                      shape.seq_len - 1)
     return state + shd.local_bytes(cache), collective_stats(log)
 
 
@@ -492,7 +413,9 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         "depth": {"blocks": cfg.num_blocks, "priced_blocks": list(depths)},
         "host_s": priced["host_s"],
         "memory": None, "memory_note": MEMORY_NOTE,
-        "compute_note": compute_note(cfg, rules, dict(zip(names, dims))),
+        "compute_note": compute_note(cfg, rules, dict(zip(names, dims)),
+                                     rcfg.seq_parallel and
+                                     shape.kind != "decode"),
         "state_bytes_per_device": int(priced["state_bytes_per_device"]),
         "op_cost": cost,
         "device_cost": priced["device_cost"],

@@ -22,7 +22,10 @@ heads where the rules split them: the projections are column-parallel,
 ``wo`` row-parallel, and each local q head reads its own kv head, from
 the local kv heads where those are split too, else from the whole set
 that every rank computes.  Where the fallback replicated the heads, the
-layer computes them whole.
+layer computes them whole.  Under sequence parallelism it computes every
+head of this rank's positions against the whole sequence's K/V
+(:func:`attn_apply`), and a decode cache split on its ring
+(``cache_seq``) is attended a part a rank (:func:`attn_decode`).
 """
 from __future__ import annotations
 
@@ -86,34 +89,54 @@ def _proj(x, w):
     return (x @ w.to(x.dtype).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
+def _read(p: Attention, leaf: str, sp):
+    """The weight ``leaf`` as the layer reads it: its bound piece, or under
+    sequence parallelism (``sp``) whole, every head: gathered over its
+    ``"model"`` shard (its gradient, a partial sum over this rank's
+    positions, reduce-scattered back) or, left whole by the fallback,
+    copied in (its gradient all-reduced)."""
+    w = getattr(p, leaf)
+    if sp is None:
+        return w
+    sh = shd.model_shard(p, leaf)
+    return shd.gather_seq(w, sh) if sh is not None else \
+        shd.copy_to_model(w, sp)
+
+
+def _norm_in(p: Attention, leaf: str, sp):
+    """``q_norm``/``k_norm``: whole, its gradient summed over the group of
+    the heads it scales (or of the positions under ``sp``)."""
+    sh = sp if sp is not None else heads_shards(p)[leaf == "k_norm"]
+    return shd.copy_to_model(getattr(p, leaf), sh)
+
+
 def project_q(cfg: ModelConfig, p: Attention, x, positions, *,
-              use_rope: bool = True):
+              use_rope: bool = True, sp=None):
     """The layer's (local) q heads from ``x``, the first of
     :func:`_inputs`; ``q_norm`` is whole and its gradient summed over the
-    heads' group."""
-    q = _proj(x, p.wq)
+    heads' group.  Under sequence parallelism (``sp``) every head, of this
+    rank's positions."""
+    q = _proj(x, _read(p, "wq", sp))
     if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
+        q = q + _read(p, "bq", sp).to(x.dtype)
     if cfg.qk_norm:
-        q = rmsnorm(q, shd.copy_to_model(p.q_norm, heads_shards(p)[0]),
-                    cfg.norm_eps)
+        q = rmsnorm(q, _norm_in(p, "q_norm", sp), cfg.norm_eps)
     if use_rope and cfg.pos_embedding == "rope":
         q = rope(q, positions, cfg.rope_theta)
     return q
 
 
 def project_kv(cfg: ModelConfig, p: Attention, x, positions, *,
-               use_rope: bool = True):
+               use_rope: bool = True, sp=None):
     """The layer's (local) kv heads from ``x``, the second of
-    :func:`_inputs`."""
-    k = _proj(x, p.wk)
-    v = _proj(x, p.wv)
+    :func:`_inputs`; every kv head under ``sp``."""
+    k = _proj(x, _read(p, "wk", sp))
+    v = _proj(x, _read(p, "wv", sp))
     if cfg.qkv_bias:
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
+        k = k + _read(p, "bk", sp).to(x.dtype)
+        v = v + _read(p, "bv", sp).to(x.dtype)
     if cfg.qk_norm:
-        k = rmsnorm(k, shd.copy_to_model(p.k_norm, heads_shards(p)[1]),
-                    cfg.norm_eps)
+        k = rmsnorm(k, _norm_in(p, "k_norm", sp), cfg.norm_eps)
     if use_rope and cfg.pos_embedding == "rope":
         k = rope(k, positions, cfg.rope_theta)
     return k, v
@@ -264,41 +287,52 @@ class AttnCall:
     use_rope: bool = True
 
 
-def _out(p: Attention, o, dtype):
+def _out(p: Attention, o, dtype, sp=None):
     """[B, S, H, D] @ wo [H, D, d] -> [B, S, d], as one [B·S, H·D]
     product: a 3-D left operand with a size-1 dim (decode) would fold to
     a product or not depending on that dim's stride, which fake tensors
     (the dry run) set differently from real ones.  Row-parallel over the
-    local heads: their partial sums are summed over the group."""
-    h, k, d = p.wo.shape
+    local heads: their partial sums are summed over the group.  Under
+    ``sp`` every head of this rank's positions, ``wo`` read whole."""
+    wo = _read(p, "wo", sp)
+    h, k, d = wo.shape
     b, s = o.shape[:2]
-    y = (o.reshape(b * s, h * k) @ p.wo.to(dtype).reshape(h * k, d)
+    y = (o.reshape(b * s, h * k) @ wo.to(dtype).reshape(h * k, d)
          ).reshape(b, s, d)
-    return shd.reduce_from_model(y, heads_shards(p)[0])
-
-
-def _constraint(x, axes):
-    return shd.logical_constraint(shd.ShardingRules(shd.TRAIN_RULES), x, axes)
+    return y if sp is not None else shd.reduce_from_model(
+        y, heads_shards(p)[0])
 
 
 def attn_apply(cfg: ModelConfig, p: Attention, x, positions, call: AttnCall,
-               *, chunk=None, causal_skip=False, seq_parallel=False):
+               *, chunk=None, causal_skip=False, seq_parallel=False,
+               sp=None):
     """Training / prefill self-attention (no cache).  Returns (out, (k,
     v)), k and v grouped [B, S, KV, D].  ``seq_parallel`` keeps q whole
-    in the chunked path and places q, k and v as the reference does under
-    sequence parallelism (q sharded over ``"act_seq"``, the grouped K/V
-    gathered whole before they are repeated; on DTensors only)."""
+    in the chunked path (``kv_chunk_only``), as the reference does.
+
+    ``sp`` (this rank's positions of the sequence, where the rules split
+    ``act_seq`` under ``seq_parallel``) runs the reference's layout: ``x``
+    holds this rank's positions, ``positions`` the whole sequence's; q
+    covers them with every head (the weights read whole), the grouped K/V
+    of the local positions are all-gathered to the whole sequence before
+    they are repeated, and the core runs the local queries against every
+    key with no causal skip.  ``wo`` returns the local positions, and the
+    K/V returned are the gathered ones (the prefill's cache)."""
+    if sp is not None:
+        q_pos = positions[:, sp.start:sp.stop]
+        q = project_q(cfg, p, x, q_pos, use_rope=call.use_rope, sp=sp)
+        k, v = project_kv(cfg, p, x, q_pos, use_rope=call.use_rope, sp=sp)
+        k, v = shd.gather_seq(k, sp), shd.gather_seq(v, sp)
+        out = attention_core(
+            q, repeat_kv(k, cfg.num_heads), repeat_kv(v, cfg.num_heads),
+            q_pos, positions, causal=call.causal, window=call.window,
+            softcap_val=cfg.attn_softcap, chunk=chunk or cfg.attn_chunk,
+            kv_chunk_only=True)
+        return _out(p, out, x.dtype, sp), (k, v)
     xq, xkv = _inputs(p, x)
     q = project_q(cfg, p, xq, positions, use_rope=call.use_rope)
     k, v = project_kv(cfg, p, xkv, positions, use_rope=call.use_rope)
-    seq, whole = ("batch", "act_seq", None, None), ("batch", None, None, None)
-    if seq_parallel:
-        q = _constraint(q, seq)
-        k = _constraint(_constraint(k, seq), whole)
-        v = _constraint(_constraint(v, seq), whole)
     kf, vf = kv_for_heads(cfg, p, k, v)
-    if seq_parallel:
-        kf, vf = _constraint(kf, whole), _constraint(vf, whole)
     out = attention_core(
         q, kf, vf, positions, positions, causal=call.causal,
         window=call.window, softcap_val=cfg.attn_softcap, chunk=chunk or cfg.attn_chunk,
@@ -306,21 +340,92 @@ def attn_apply(cfg: ModelConfig, p: Attention, x, positions, call: AttnCall,
     return _out(p, out, x.dtype), (k, v)
 
 
+def softmax_part(q, k, v, q_pos, k_pos, *, causal, window, softcap_val):
+    """One part of an attention whose keys are split over ranks: q [B, Sq,
+    H, D] (scaled), k/v [B, Sk, H, D] this part's slots.  Returns f32 (m
+    [B, H, Sq, 1], l [B, H, Sq, 1], acc [B, H, Sq, D]): the max of the
+    part's logits (softcap first, then the mask), the sum of the
+    exponentials after it and the values weighted by them.  A part whose
+    slots are all masked (empty ring slots, pos < 0) weighs nothing: l
+    and acc are 0, whatever its max."""
+    logits = _logits(q, k, softcap_val)
+    mask = _mask(q_pos, k_pos, causal=causal, window=window)
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(-1, keepdim=True).clamp_min(NEG_INF)
+    e = torch.where(mask, torch.exp(logits - m), 0.0)
+    return m, e.sum(-1, keepdim=True), e @ v.float().transpose(1, 2)
+
+
+def merge_parts(m, l, acc, max_over, sum_over):
+    """The attention output [B, Sq, H, D] f32 of the parts of
+    :func:`softmax_part`: ``max_over``/``sum_over`` take the max and sum of
+    a part's tensor over the parts (over the ``"model"`` group on a mesh),
+    each part rescaled to the largest max before the sums."""
+    scale = torch.exp(m - max_over(m))
+    la = sum_over(torch.cat([acc * scale, l * scale], dim=-1))
+    return (la[..., :-1] / la[..., -1:].clamp_min(1e-30)).transpose(1, 2)
+
+
+def _attend_slots(cfg: ModelConfig, p: Attention, q, cache_k, cache_v,
+                  q_pos, k_pos, *, causal, window, group, dtype):
+    """The local q heads ``q`` [B, Sq, H', D] against this rank's slots of
+    a cache split over ``"model"`` on its sequence (``cache_seq``): the
+    queries of every head (gathered over the q heads' group), a partial
+    softmax over the local slots, the parts combined over ``group``; the
+    output of the local heads, [B, Sq, H', D] in ``dtype``."""
+    qs = heads_shards(p)[0]
+    q = shd.gather_from_model(q, qs, dim=2)
+    q = q * scalar(q.shape[-1] ** -0.5, q)
+    h = cfg.num_heads
+    m, l, acc = softmax_part(q, repeat_kv(cache_k.to(dtype), h),
+                             repeat_kv(cache_v.to(dtype), h), q_pos, k_pos,
+                             causal=causal, window=window,
+                             softcap_val=cfg.attn_softcap)
+    sh = shd.ModelShard(1, 0, 0, group)
+    out = merge_parts(m, l, acc, lambda t: shd.max_over_model(t, sh),
+                      lambda t: shd.reduce_from_model(t, sh)).to(dtype)
+    return out if qs is None else out[:, :, qs.start:qs.stop]
+
+
 def attn_decode(cfg: ModelConfig, p: Attention, x, pos: int, cache_k,
                 cache_v, cache_pos, call: AttnCall):
     """Single-token decode.  x: [B, 1, d]; pos: the position (uniform
     over the batch).
 
-    cache_k/v: [B, W, KV, D] (on a mesh the layer's kv heads: local where
-    the rules split them); cache_pos: [W] int32 (absolute position per
-    slot, -1 = empty); the token goes to ring slot ``pos % W``.  Returns
-    (out, new cache_k, new cache_v, new cache_pos); the caches passed in
-    are not modified."""
-    b, w = x.shape[0], cache_k.shape[1]
+    cache_k/v: [B, W', KV', D], on a mesh this rank's piece in the rules'
+    layout; cache_pos: [W] int32 (absolute position per slot, -1 = empty,
+    whole on every rank); the token goes to ring slot ``pos % W``.  Where
+    the rules split the ring over ``"model"`` (``cache_seq``; W' = W/n)
+    each rank holds slots ``[r W', (r + 1) W')`` of every kv head, attends
+    them for every head and combines its partial softmax with the group's
+    (:func:`softmax_part`, :func:`merge_parts`); only the slot's owner
+    writes the token's K/V.  Else (W' = W) the rank holds the layer's kv
+    heads, local where the rules split them.  Returns (out, new cache_k,
+    new cache_v, new cache_pos); the caches passed in are not
+    modified."""
+    b, w, wl = x.shape[0], cache_pos.shape[0], cache_k.shape[1]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     xq, xkv = _inputs(p, x)
     q = project_q(cfg, p, xq, positions, use_rope=call.use_rope)
     k, v = project_kv(cfg, p, xkv, positions, use_rope=call.use_rope)
+    if wl != w:
+        group = shd.model_group(p)
+        lo = group[0].get_local_rank(group[1]) * wl
+        ks = heads_shards(p)[1]
+        k = shd.gather_from_model(k, ks, dim=2)      # every kv head
+        v = shd.gather_from_model(v, ks, dim=2)
+        slot = pos % w
+        cache_pos = cache_pos.clone()
+        cache_pos[slot] = pos
+        if lo <= slot < lo + wl:
+            cache_k, cache_v = cache_k.clone(), cache_v.clone()
+            cache_k[:, slot - lo] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, slot - lo] = v[:, 0].to(cache_v.dtype)
+        k_pos = cache_pos[lo:lo + wl][None, :].expand(b, wl)
+        out = _attend_slots(cfg, p, q, cache_k, cache_v, positions, k_pos,
+                            causal=call.causal, window=call.window,
+                            group=group, dtype=x.dtype)
+        return _out(p, out, x.dtype), cache_k, cache_v, cache_pos
     slot = pos % w
     cache_k, cache_v, cache_pos = (cache_k.clone(), cache_v.clone(),
                                    cache_pos.clone())
@@ -335,24 +440,50 @@ def attn_decode(cfg: ModelConfig, p: Attention, x, pos: int, cache_k,
     return _out(p, out, x.dtype), cache_k, cache_v, cache_pos
 
 
-def cross_attn_apply(cfg: ModelConfig, p: Attention, x, enc_k, enc_v):
-    """Encoder-decoder cross attention (whisper).  enc_k/v: [B, Se, KV,
-    D] (the layer's kv heads, from :func:`cross_kv`); every encoder slot
-    is valid, no mask, no RoPE."""
+def cross_attn_apply(cfg: ModelConfig, p: Attention, x, enc_k, enc_v,
+                     sp=None):
+    """Encoder-decoder cross attention (whisper).  enc_k/v: [B, Se', KV',
+    D] (from :func:`cross_kv`); every encoder slot is valid, no mask, no
+    RoPE.  On a mesh: the layer's kv heads, local where the rules split
+    them, or (Se' < Se, a decode cache split on ``cache_seq``) this rank's
+    slots of every kv head, attended as :func:`attn_decode` attends them.
+    Under sequence parallelism (``sp``: ``x`` holds this rank's
+    positions) every head, ``enc_k``/``enc_v`` every kv head of the whole
+    encoder sequence."""
     b, sq = x.shape[0], x.shape[1]
     positions = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
-    q = project_q(cfg, p, _inputs(p, x)[0], positions, use_rope=False)
-    kf, vf = kv_for_heads(cfg, p, enc_k.to(x.dtype), enc_v.to(x.dtype))
     se = enc_k.shape[1]
+    if sp is not None:
+        q = project_q(cfg, p, x, positions, use_rope=False, sp=sp)
+        kf = repeat_kv(enc_k.to(x.dtype), cfg.num_heads)
+        vf = repeat_kv(enc_v.to(x.dtype), cfg.num_heads)
+    else:
+        q = project_q(cfg, p, _inputs(p, x)[0], positions, use_rope=False)
+    if sp is None and se < cfg.encoder_seq:
+        group = shd.model_group(p)
+        lo = group[0].get_local_rank(group[1]) * se
+        k_pos = torch.arange(lo, lo + se, dtype=torch.int32,
+                             device=x.device)[None].expand(b, se)
+        out = _attend_slots(cfg, p, q, enc_k, enc_v, positions, k_pos,
+                            causal=False, window=None, group=group,
+                            dtype=x.dtype)
+        return _out(p, out, x.dtype)
+    if sp is None:
+        kf, vf = kv_for_heads(cfg, p, enc_k.to(x.dtype), enc_v.to(x.dtype))
     k_pos = torch.arange(se, dtype=torch.int32,
                          device=x.device)[None].expand(b, se)
     out = attention_core(q, kf, vf, positions, k_pos, causal=False,
                          window=None, softcap_val=cfg.attn_softcap,
                          force_direct=(sq == 1))
-    return _out(p, out, x.dtype)
+    return _out(p, out, x.dtype, sp)
 
 
-def cross_kv(cfg: ModelConfig, p: Attention, enc):
+def cross_kv(cfg: ModelConfig, p: Attention, enc, sp=None):
     """The cross K/V [B, Se, KV', D] of the encoder states ``enc``: the
-    layer's kv heads, local where the rules split them."""
+    layer's kv heads, local where the rules split them; every kv head,
+    from the weights read whole, under sequence parallelism (``sp``, the
+    decoder's positions: ``enc`` is the whole encoder sequence, entered
+    into compute whose gradient is partial)."""
+    if sp is not None:
+        return project_kv(cfg, p, enc, None, use_rope=False, sp=sp)
     return project_kv(cfg, p, _inputs(p, enc)[1], None, use_rope=False)

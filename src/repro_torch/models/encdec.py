@@ -13,7 +13,9 @@ under :func:`repro_torch.models.lm.remat`.  On a mesh the attention and
 MLPs of both stacks, the cross K/V projections among them, compute on
 this rank's heads and MLP shard where the rules split them
 (:mod:`repro_torch.models.attention`, :func:`~repro_torch.models.layers.
-mlp_apply`); the cache holds the rank's kv heads.
+mlp_apply`); the prefill's cache holds the rank's kv heads (every kv
+head under sequence parallelism, which each stack applies where its own
+sequence divides).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.lm import (_constraint, _embed_in, _merge_metrics,
-                                   remat)
+                                   remat, seq_parallel_shard)
+from repro_torch.runtime import sharding as shd
 
 
 class EncLayer(nn.Module):
@@ -67,45 +70,60 @@ class EncDec(nn.Module):
         self.final_norm = L.ones(cfg.d_model, generator, dtype)
 
 
-def encode(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, frames):
-    """frames: [B, Se, d] stub embeddings -> encoder states [B, Se, d]."""
+def encode(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, frames,
+           sp=None):
+    """frames: [B, Se, d] stub embeddings -> encoder states [B, Se, d];
+    under sequence parallelism (``sp``, the encoder's) this rank's
+    positions of them."""
     cd = getattr(torch, rcfg.compute_dtype)
-    x = frames.to(cd) + model.enc_pos.to(cd)[None]
-    b, s, _ = x.shape
+    b, s = frames.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None].expand(b, s)
+                             device=frames.device)[None].expand(b, s)
+    enc_pos = shd.split_seq(model.enc_pos[None], sp)
+    if sp is not None:
+        frames = frames[:, sp.start:sp.stop]
+    x = frames.to(cd) + enc_pos.to(cd)
     layer_fn = remat(_enc_layer, rcfg)
     for p in model.encoder:
-        x = layer_fn(cfg, p, x, positions)
-    return L.rmsnorm(x, model.enc_final_norm, cfg.norm_eps)
+        x = layer_fn(cfg, p, x, positions, sp)
+    return L.rmsnorm(x, shd.copy_to_model(model.enc_final_norm, sp),
+                     cfg.norm_eps)
 
 
-def _enc_layer(cfg: ModelConfig, p: EncLayer, x, positions):
+def _norm(cfg: ModelConfig, x, w, sp):
+    return L.rmsnorm(x, shd.copy_to_model(w, sp), cfg.norm_eps)
+
+
+def _enc_layer(cfg: ModelConfig, p: EncLayer, x, positions, sp=None):
     call = attn.AttnCall(causal=False, window=None, use_rope=False)
-    h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
-    y, _ = attn.attn_apply(cfg, p.mixer, h, positions, call)
+    h = _norm(cfg, x, p.norm1, sp)
+    y, _ = attn.attn_apply(cfg, p.mixer, h, positions, call, sp=sp)
     x = x + y
-    h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
-    return _constraint(x + L.mlp_apply(cfg, p.mlp, h),
+    h = _norm(cfg, x, p.norm2, sp)
+    return _constraint(x + L.mlp_apply(cfg, p.mlp, h, sp),
                        ("batch", "seq", "act_embed"))
 
 
-def _cross_kv(cfg: ModelConfig, p: DecLayer, enc):
-    k, v = attn.cross_kv(cfg, p.cross, enc)
+def _cross_kv(cfg: ModelConfig, p: DecLayer, enc, sp=None):
+    k, v = attn.cross_kv(cfg, p.cross, enc, sp)
     return k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
-def _dec_layer(cfg: ModelConfig, p: DecLayer, x, positions, enc, mode: str):
-    """One decoder layer; returns (x, its prefill cache entry or None)."""
+def _dec_layer(cfg: ModelConfig, p: DecLayer, x, positions, enc, mode: str,
+               sp=None):
+    """One decoder layer; returns (x, its prefill cache entry or None).
+    Under sequence parallelism (``sp``) ``x`` holds this rank's positions
+    and ``enc`` the whole encoder sequence (see :func:`_enc_for_decoder`);
+    the cross K/V, of every kv head, go to the cache as they are."""
     call = attn.AttnCall(causal=True, window=None, use_rope=False)
-    h = L.rmsnorm(x, p.norm1, cfg.norm_eps)
-    y, (k, v) = attn.attn_apply(cfg, p.mixer, h, positions, call)
+    h = _norm(cfg, x, p.norm1, sp)
+    y, (k, v) = attn.attn_apply(cfg, p.mixer, h, positions, call, sp=sp)
     x = x + y
-    ck, cv = _cross_kv(cfg, p, enc)
-    h = L.rmsnorm(x, p.norm_cross, cfg.norm_eps)
-    x = x + attn.cross_attn_apply(cfg, p.cross, h, ck, cv)
-    h = L.rmsnorm(x, p.norm2, cfg.norm_eps)
-    x = _constraint(x + L.mlp_apply(cfg, p.mlp, h),
+    ck, cv = _cross_kv(cfg, p, enc, sp)
+    h = _norm(cfg, x, p.norm_cross, sp)
+    x = x + attn.cross_attn_apply(cfg, p.cross, h, ck, cv, sp)
+    h = _norm(cfg, x, p.norm2, sp)
+    x = _constraint(x + L.mlp_apply(cfg, p.mlp, h, sp),
                     ("batch", "seq", "act_embed"))
     if mode != "prefill":
         return x, None
@@ -117,20 +135,41 @@ def _dec_layer(cfg: ModelConfig, p: DecLayer, x, positions, enc, mode: str):
 def forward(cfg: ModelConfig, rcfg: RunConfig, model: EncDec, tokens,
             frames, mode: str = "train"):
     """Teacher-forced decoder over the encoder states.  Returns (logits,
-    cache or None, metrics); the cache only with ``mode="prefill"``."""
-    enc = encode(cfg, rcfg, model, frames.to(model.enc_pos.device))
-    x, positions = _embed_in(cfg, rcfg, model, tokens)
+    cache or None, metrics); the cache only with ``mode="prefill"``.
+    Under sequence parallelism the encoder and the decoder each split
+    their sequence where the rules split it (the encoder's and the
+    decoder's lengths may fall back apart)."""
+    frames = frames.to(model.enc_pos.device)
+    enc_sp = seq_parallel_shard(rcfg, model, frames.shape[1], mode)
+    sp = seq_parallel_shard(rcfg, model, tokens.shape[1], mode)
+    enc = _enc_for_decoder(encode(cfg, rcfg, model, frames, enc_sp), enc_sp,
+                           sp, model)
+    x, positions = _embed_in(cfg, rcfg, model, tokens, sp=sp)
     layer_fn = remat(_dec_layer, rcfg)
     entries = []
     for p in model.decoder:
-        x, entry = layer_fn(cfg, p, x, positions, enc, mode)
+        x, entry = layer_fn(cfg, p, x, positions, enc, mode, sp)
         entries.append(entry)
-    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
-    logits = _constraint(L.lm_logits(cfg, model.embed, x),
+    x = _norm(cfg, x, model.final_norm, sp)
+    logits = _constraint(L.lm_logits(cfg, model.embed, x, sp),
                          ("batch", "seq", "vocab"))
     cache = ({k: torch.stack([e[k] for e in entries]) for k in entries[0]}
              if mode == "prefill" else None)
     return logits, cache, _merge_metrics([], x.device)
+
+
+def _enc_for_decoder(enc, enc_sp, sp, model):
+    """The encoder states as every decoder layer's cross K/V read them:
+    whole.  Local positions are gathered, the gradient reduce-scattered
+    where the decoder runs sequence-parallel (its cross attention's
+    gradient is a partial sum over its positions) or sliced where it runs
+    tensor-parallel (the same on every rank); whole states enter the
+    decoder's positions with their gradient all-reduced."""
+    if enc_sp is None:
+        return shd.copy_to_model(enc, sp)
+    if sp is None:
+        return shd.gather_from_model(enc, enc_sp)
+    return shd.gather_seq(enc, enc_sp)
 
 
 def init_cache(cfg: ModelConfig, rcfg: RunConfig, batch: int, max_len: int,

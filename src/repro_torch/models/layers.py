@@ -16,6 +16,8 @@ left it replicated.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -117,18 +119,34 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(cfg: ModelConfig, p: MLP, x):
+def mlp_apply(cfg: ModelConfig, p: MLP, x, sp=None):
     """``wi``/``wi_gate`` column-parallel and ``wo`` row-parallel over the
-    ``"mlp"`` shard, where the rules split it."""
+    ``"mlp"`` shard, where the rules split it.  Under sequence parallelism
+    (``sp``, this rank's positions of ``x``) a split MLP reads the whole
+    sequence (:func:`~repro_torch.runtime.sharding.gather_seq`) and leaves
+    its partial sums on each rank's positions (``scatter_seq``); a whole
+    one computes on the local positions."""
     sh = shd.model_shard(p, "wi")
-    x = shd.copy_to_model(x, sh)
-    h = x @ p.wi.to(x.dtype)
+    leaves = ("wi_gate", "wi", "wo") if cfg.mlp_gated else ("wi", "wo")
+    if sp is not None and sh is None:
+        w = {k: shd.copy_to_model(getattr(p, k), sp) for k in leaves}
+        enter, leave = (lambda t: t), (lambda t: t)
+    elif sp is not None:
+        w = {k: getattr(p, k) for k in leaves}
+        enter = functools.partial(shd.gather_seq, shard=sp)
+        leave = functools.partial(shd.scatter_seq, shard=sp)
+    else:
+        w = {k: getattr(p, k) for k in leaves}
+        enter = functools.partial(shd.copy_to_model, shard=sh)
+        leave = functools.partial(shd.reduce_from_model, shard=sh)
+    x = enter(x)
+    h = x @ w["wi"].to(x.dtype)
     if cfg.mlp_gated:
-        g = x @ p.wi_gate.to(x.dtype)
+        g = x @ w["wi_gate"].to(x.dtype)
         h = F.silu(g) * h
     else:
         h = gelu(h)
-    return shd.reduce_from_model(h @ p.wo.to(x.dtype), sh)
+    return leave(h @ w["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -154,14 +172,18 @@ class Embedding(nn.Module):
                                             scale=0.02, dtype=dtype)
 
 
-def embed_tokens(cfg: ModelConfig, p: Embedding, tokens, compute_dtype):
+def embed_tokens(cfg: ModelConfig, p: Embedding, tokens, compute_dtype, *,
+                 partial: bool = False):
     """tokens [B, S] -> [B, S, d] in ``compute_dtype``.  Gathers, then
     casts: the same values as the reference's cast of the whole table.
     ``scale_embeddings`` multiplies by ``d_model ** 0.5`` rounded to the
     compute dtype first.  On a vocab shard, each rank looks up the tokens
     in its range and the rows are summed over the group (one is not
-    zero)."""
-    sh = shd.model_shard(p, "embedding")
+    zero); with ``partial`` they are returned unsummed (zero rows for the
+    tokens of other ranks, scaled all the same: a sum of one row and
+    zeros is exact, so the scale may come first), for the caller to sum
+    onto its positions."""
+    sh = embed_shard(p)
     tokens = tokens.long()
     if sh is None:
         x = p.embedding[tokens].to(compute_dtype)
@@ -169,16 +191,31 @@ def embed_tokens(cfg: ModelConfig, p: Embedding, tokens, compute_dtype):
         local = tokens - sh.start
         mine = (local >= 0) & (local < sh.stop - sh.start)
         x = p.embedding[torch.where(mine, local, 0)].to(compute_dtype)
-        x = shd.reduce_from_model(torch.where(mine[..., None], x, 0), sh)
+        x = torch.where(mine[..., None], x, 0)
+        if not partial:
+            x = shd.reduce_from_model(x, sh)
     if cfg.scale_embeddings:
         x = x * scalar(cfg.d_model ** 0.5, x)
     return x
 
 
-def add_positions(cfg: ModelConfig, p: Embedding, x, positions):
-    """Adds learned position embeddings; RoPE is applied in attention."""
+def embed_shard(p: Embedding) -> shd.ModelShard | None:
+    """The vocab shard of the token table."""
+    return shd.model_shard(p, "embedding")
+
+
+def add_positions(cfg: ModelConfig, p: Embedding, x, positions, sp=None):
+    """Adds learned position embeddings; RoPE is applied in attention.
+    Under sequence parallelism ``x`` holds this rank's positions ``sp`` of
+    the whole sequence's ``positions`` (the same in every row): the
+    table's rows of the whole sequence, read alike on every rank, are
+    split (their gradient all-gathered, not the table's all-reduced)."""
     if cfg.pos_embedding == "learned":
-        x = x + p.pos_embedding[positions.long()].to(x.dtype)
+        if sp is None:
+            x = x + p.pos_embedding[positions.long()].to(x.dtype)
+        else:
+            rows = p.pos_embedding[positions[0].long()][None]
+            x = x + shd.split_seq(rows, sp).to(x.dtype)
     return x
 
 
@@ -192,12 +229,17 @@ def head_shard(cfg: ModelConfig, p: Embedding) -> shd.ModelShard | None:
                            else "lm_head")
 
 
-def lm_logits(cfg: ModelConfig, p: Embedding, x):
+def lm_logits(cfg: ModelConfig, p: Embedding, x, sp=None):
     """x [B, S, d] -> logits [B, S, V]: the final-logit softcap, then the
     padded vocab entries set to -1e30.  On a vocab shard, this rank's
-    logits [B, S, V/n] of the entries ``head_shard(cfg, p)`` holds."""
+    logits [B, S, V/n] of the entries ``head_shard(cfg, p)`` holds.  Under
+    sequence parallelism ``x`` holds this rank's positions ``sp`` and the
+    sequence is gathered whole first."""
     sh = head_shard(cfg, p)
-    x = shd.copy_to_model(x, sh)
+    if sp is not None:     # the whole sequence; a split head's gradient of
+        x = (shd.gather_seq(x, sp) if sh is not None   # it is partial
+             else shd.gather_from_model(x, sp))
+    x = shd.copy_to_model(x, sh if sp is None else None)
     if cfg.tie_embeddings:
         logits = x @ p.embedding.to(x.dtype).T
     else:

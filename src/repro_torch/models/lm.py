@@ -16,7 +16,10 @@ training rules), called where the reference calls it: it redistributes a
 DTensor activation to the rules' layout and passes a plain tensor, which
 is what the sharded runs compute on (each layer reads its weights'
 ``"model"`` shards and computes tensor-parallel; see
-:mod:`repro_torch.runtime.sharding`).
+:mod:`repro_torch.runtime.sharding`).  With ``rcfg.seq_parallel``, where
+the rules split ``act_seq``, the layers run sequence-parallel
+(:func:`seq_parallel_shard`, :func:`apply_layer`): the residual stream
+holds each rank's positions.
 
 Under autograd, :func:`remat` wraps each layer as the reference's
 ``_remat`` wraps its scanned block: ``"full"`` keeps only the layer's
@@ -108,14 +111,25 @@ def _attn_call(cfg: ModelConfig, spec: LayerSpec) -> attn.AttnCall:
 
 def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
                 p: Layer, x, positions, cache=None, pos=None,
-                mode: str = "train"):
+                mode: str = "train", sp=None):
     """One layer.  Returns (x, new cache entry, metrics); the entry is
     None in ``"train"`` mode, metrics are the MoE's (empty otherwise).
     The prefill stores K/V and the Mamba conv state in bf16, as the
-    reference does; decode returns the conv state in the compute dtype."""
+    reference does; decode returns the conv state in the compute dtype.
+
+    Under sequence parallelism ``sp`` (a :class:`~repro_torch.runtime.
+    sharding.ModelShard` of the sequence dim) ``x`` holds this rank's
+    positions of the whole sequence's ``positions``: the norms and
+    residual adds run on them (the norm weights' gradients are partial
+    sums, all-reduced), and each mixer and MLP crosses to the whole
+    sequence and back as its layout needs."""
     metrics = {}
     zc = cfg.use_post_norm
-    h = L.rmsnorm(x, p.norm1, cfg.norm_eps, zero_centered=zc)
+
+    def norm(t, w, zero_centered=zc):
+        return L.rmsnorm(t, shd.copy_to_model(w, sp), cfg.norm_eps,
+                         zero_centered=zero_centered)
+    h = norm(x, p.norm1)
     if spec.mixer in ("attn", "attn_local"):
         call = _attn_call(cfg, spec)
         if mode == "decode":
@@ -128,7 +142,7 @@ def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
             y, (k, v) = attn.attn_apply(
                 cfg, p.mixer, h, positions, call,
                 causal_skip=rcfg.attn_causal_skip,
-                seq_parallel=rcfg.seq_parallel)
+                seq_parallel=rcfg.seq_parallel, sp=sp)
             new_cache = _prefill_cache(cfg, spec, k, v, positions, mode)
     else:  # mamba
         if mode == "decode":
@@ -137,16 +151,20 @@ def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
             new_cache = {"conv": cs, "ssm": hs}
         else:
             y, (cs, hs) = ssm_apply(cfg, p.mixer, h,
-                                    use_pallas=rcfg.use_pallas)
+                                    use_pallas=rcfg.use_pallas, sp=sp)
             new_cache = ({"conv": cs.to(torch.bfloat16), "ssm": hs}
                          if mode == "prefill" else None)
     if cfg.use_post_norm:
-        y = L.rmsnorm(y, p.post_norm1, cfg.norm_eps, zero_centered=True)
+        y = norm(y, p.post_norm1, True)
     x = x + y
     if spec.mlp != "none":
-        h = L.rmsnorm(x, p.norm2, cfg.norm_eps, zero_centered=zc)
+        h = norm(x, p.norm2)
         if spec.mlp == "dense":
-            y = L.mlp_apply(cfg, p.mlp, h)
+            y = L.mlp_apply(cfg, p.mlp, h, sp)
+        elif sp is not None:
+            y, metrics = moe_layer.moe_apply_seq(cfg, p.mlp, h, sp,
+                                                 impl=rcfg.moe_impl,
+                                                 mode=mode)
         else:
             b, s, d = h.shape
             y2d, metrics = moe_layer.moe_apply(cfg, p.mlp,
@@ -154,7 +172,7 @@ def apply_layer(cfg: ModelConfig, rcfg: RunConfig, spec: LayerSpec,
                                                impl=rcfg.moe_impl, mode=mode)
             y = y2d.reshape(b, s, d)
         if cfg.use_post_norm:
-            y = L.rmsnorm(y, p.post_norm2, cfg.norm_eps, zero_centered=True)
+            y = norm(y, p.post_norm2, True)
         x = x + y
     seq_ax = "act_seq" if (rcfg.seq_parallel and mode != "decode") else "seq"
     x = _constraint(x, ("batch", seq_ax, "act_embed"))
@@ -195,17 +213,43 @@ def _stack(cfg: ModelConfig, entries: list[dict]) -> list[dict]:
 # ---------------------------------------------------------------------------
 
 
+def seq_parallel_shard(rcfg: RunConfig, model, length: int, mode: str):
+    """This rank's positions of a sequence of ``length`` under sequence
+    parallelism: with ``rcfg.seq_parallel`` outside decode, where the
+    rules split ``act_seq`` over the model's ``"model"`` axis; else None
+    (no mesh, or the divisibility fallback), and the layers run the
+    tensor-parallel program."""
+    if not rcfg.seq_parallel or mode == "decode":
+        return None
+    return shd.seq_shard(model.embed, length, "act_seq", rules=RULES)
+
+
 def _embed_in(cfg: ModelConfig, rcfg: RunConfig, model, tokens,
-              extra_embeds=None, pos_offset: int = 0):
+              extra_embeds=None, pos_offset: int = 0, sp=None):
     """Token embeddings (after the ``extra_embeds`` prefix, the vlm/audio
-    stub) and their positions [B, S] int32."""
+    stub) and their positions [B, S] int32.  Under sequence parallelism
+    (``sp``) the embeddings of this rank's positions of the whole
+    sequence: a vocab-parallel lookup's partial rows summed onto them
+    (``scatter_seq``, the prefix counted on the group's first rank), a
+    whole one split; the positions stay whole."""
     cd = getattr(torch, rcfg.compute_dtype)
-    x = L.embed_tokens(cfg, model.embed, tokens, cd)
+    vocab = L.embed_shard(model.embed) if sp is not None else None
+    x = L.embed_tokens(cfg, model.embed, tokens, cd,
+                       partial=vocab is not None)
     if extra_embeds is not None:
-        x = torch.cat([extra_embeds.to(device=x.device, dtype=cd), x], dim=1)
+        prefix = extra_embeds.to(device=x.device, dtype=cd)
+        if vocab is not None and \
+                vocab.group[0].get_local_rank(vocab.group[1]):
+            prefix = torch.zeros_like(prefix)
+        x = torch.cat([prefix, x], dim=1)
     b, s, _ = x.shape
     positions = (torch.arange(s, dtype=torch.int32, device=x.device)
                  + pos_offset).expand(b, s)
+    if sp is not None:
+        x = (shd.scatter_seq(x, sp) if vocab is not None
+             else shd.split_seq(x, sp))
+        return L.add_positions(cfg, model.embed, x, positions, sp), \
+            positions
     x = L.add_positions(cfg, model.embed, x, positions)
     return _constraint(x, ("batch", "seq", "act_embed")), positions
 
@@ -249,19 +293,26 @@ def forward(cfg: ModelConfig, rcfg: RunConfig, model: LM, tokens,
     """tokens: [B, S] -> (logits [B, S', V], cache or None, metrics).
 
     S' = S plus the ``extra_embeds`` prefix.  ``mode="prefill"`` also
-    returns the stacked KV/SSM cache.  Metrics stay on the device."""
-    x, positions = _embed_in(cfg, rcfg, model, tokens, extra_embeds)
+    returns the stacked KV/SSM cache.  Metrics stay on the device.  Under
+    sequence parallelism (:func:`seq_parallel_shard`) the layers and the
+    final norm run on this rank's positions, and the sequence is gathered
+    whole before the head: the logits and the cache cover every
+    position."""
+    length = tokens.shape[1] + (0 if extra_embeds is None
+                                else extra_embeds.shape[1])
+    sp = seq_parallel_shard(rcfg, model, length, mode)
+    x, positions = _embed_in(cfg, rcfg, model, tokens, extra_embeds, sp=sp)
     pattern = cfg.full_pattern
     layer_fn = remat(apply_layer, rcfg)
     entries, mets = [], []
     for l, layer in enumerate(model.layers):
         x, entry, met = layer_fn(cfg, rcfg, pattern[l % len(pattern)],
-                                 layer, x, positions, mode=mode)
+                                 layer, x, positions, mode=mode, sp=sp)
         entries.append(entry)
         mets.append(met)
-    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps,
+    x = L.rmsnorm(x, shd.copy_to_model(model.final_norm, sp), cfg.norm_eps,
                   zero_centered=cfg.use_post_norm)
-    logits = _constraint(L.lm_logits(cfg, model.embed, x),
+    logits = _constraint(L.lm_logits(cfg, model.embed, x, sp),
                          ("batch", "seq", "vocab"))
     cache = _stack(cfg, entries) if mode == "prefill" else None
     return logits, cache, _merge_metrics(mets, x.device)

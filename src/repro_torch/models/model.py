@@ -6,8 +6,10 @@ decode run without it.
 
 ``input_specs``, ``cache_specs`` and ``param_specs`` are the dry-run
 contract: ``device="meta"`` tensors of the reference's shapes and dtypes
-(no storage).  ``param_specs`` is the port's state dict, one entry per
-layer where the reference stacks a pattern position over its blocks.
+(no storage; the whole cache, which the rules' layout splits on a mesh:
+:func:`place_cache`, :func:`init_cache` with a bound model).
+``param_specs`` is the port's state dict, one entry per layer where the
+reference stacks a pattern position over its blocks.
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import encdec, lm
 from repro_torch.models import layers as L
+from repro_torch.models.ssm import conv_from_layout
 from repro_torch.runtime import sharding as shd
 
 
@@ -93,21 +97,99 @@ def whole_logits(cfg: ModelConfig, model, logits):
 
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, rcfg: RunConfig, model, batch):
+def prefill(cfg: ModelConfig, rcfg: RunConfig, model, batch,
+            max_len: int | None = None):
     """batch: ``{"tokens": [B, S]}``, plus ``"frames"`` [B, Se, d] for
     whisper or ``"patch_embeds"`` [B, F, d] for the vlm prefix.  Returns
-    (last logits [B, 1, V], cache); on a mesh the cache holds this rank's
-    kv and SSM heads."""
+    (last logits [B, 1, V], cache).  Without ``max_len`` the cache is the
+    layers' own: on a mesh this rank's kv and SSM heads (every position;
+    every kv head under sequence parallelism).  With ``max_len``, the
+    decode capacity, it is :func:`place_cache`'s."""
     logits, cache, _ = _forward(cfg, rcfg, model, batch, mode="prefill")
+    if max_len is not None:
+        cache = place_cache(cfg, model, cache, max_len)
     return whole_logits(cfg, model, logits[:, -1:]), cache
 
 
+def _cache_modules(cfg: ModelConfig, model):
+    """``{leaf: module}`` per cache entry: the attention or Mamba2 mixer
+    whose weights' shards give a cache leaf's layout (every layer of a
+    pattern position, or of whisper's decoder, shares it)."""
+    if is_encdec(cfg):
+        d = model.decoder[0]
+        return {"k": d.mixer, "v": d.mixer, "cross_k": d.cross,
+                "cross_v": d.cross}
+    return [{k: model.layers[i].mixer for k in ("k", "v", "conv")}
+            for i in range(len(cfg.full_pattern))]
+
+
+def place_cache(cfg: ModelConfig, model, cache, max_len: int):
+    """A prefill's cache grown to the decode capacity ``max_len``
+    (:func:`repro_torch.serve.serve_step.pad_cache`) and, on a mesh, each
+    leaf this rank's piece in the rules' layout, which the decode reads:
+    the ring ``cache_seq`` split over ``"model"`` where it divides (each
+    rank W/n slots of every kv head), else the kv heads where they
+    divide, else whole; the conv state split on its channels, the SSM
+    state on its heads.  The layers' own layout (local kv heads at every
+    position, or every kv head) is made whole once, then padded, then
+    cut: which slots a rank owns depends on the padded W."""
+    from repro_torch.serve.serve_step import pad_cache
+    group = shd.model_group(model.embed)
+    if group is None:
+        return pad_cache(cfg, cache, max_len)
+    mods = _cache_modules(cfg, model)
+
+    def whole(entry, mod):
+        out = dict(entry)
+        for k, x in entry.items():
+            if k in ("k", "v", "cross_k", "cross_v") and \
+                    x.shape[-2] < cfg.num_kv_heads:
+                out[k] = shd.gather_from_model(
+                    x, attn.heads_shards(mod[k])[1], dim=-2)
+        return out
+
+    def cut(entry, mod):
+        out = dict(entry)
+        for k, x in entry.items():
+            if k == "conv":
+                sh = shd.model_shard(mod[k], "A_log")
+                out[k] = conv_from_layout(cfg, mod[k], x, sh)
+            elif k in ("k", "v", "cross_k", "cross_v"):
+                piece = shd.model_piece(shd.resolve_axes(k, x.dim()),
+                                        x.shape, group)
+                if piece is not None:
+                    out[k] = x.narrow(piece[0], piece[1],
+                                      piece[2] - piece[1])
+        return out
+
+    if is_encdec(cfg):
+        return cut(pad_cache(cfg, whole(cache, mods), max_len), mods)
+    grown = pad_cache(cfg, [whole(e, m) for e, m in zip(cache, mods)],
+                      max_len)
+    return [cut(e, m) for e, m in zip(grown, mods)]
+
+
 def init_cache(cfg: ModelConfig, rcfg: RunConfig, batch: int, max_len: int,
-               *, device="cuda"):
+               *, device="cuda", model=None):
+    """A zero cache (every ``pos`` -1) for ``batch`` rows and capacity
+    ``max_len``; with ``model`` bound on a mesh, each leaf this rank's
+    piece of it in the rules' layout (:func:`place_cache`'s)."""
     device = resolve_device(device)
     if is_encdec(cfg):
-        return encdec.init_cache(cfg, rcfg, batch, max_len, device=device)
-    return lm.init_cache(cfg, rcfg, batch, max_len, device=device)
+        cache = encdec.init_cache(cfg, rcfg, batch, max_len, device=device)
+    else:
+        cache = lm.init_cache(cfg, rcfg, batch, max_len, device=device)
+    group = None if model is None else shd.model_group(model.embed)
+    if group is None:
+        return cache
+
+    def piece(path, x):
+        cut = shd.model_piece(shd.resolve_axes(path, x.dim()), x.shape,
+                              group)
+        if cut is None:
+            return x
+        return x.narrow(cut[0], cut[1], cut[2] - cut[1]).clone()
+    return shd.tree_map_with_path(piece, cache)
 
 
 @torch.no_grad()

@@ -20,7 +20,10 @@ heads where the rules split them: ``wz``, ``wx``, ``wdt``, ``conv_x``,
 ``wC``, ``conv_B`` and ``conv_C`` whole (each local head reads its
 group), the SSD chunk (the kernel with ``use_pallas``) on the local
 heads, the gated norm's sum of squares summed over the group, and ``wo``
-row-parallel.
+row-parallel.  Under sequence parallelism the mixer gathers the sequence
+in and reduce-scatters ``wo``'s partial sums back (:func:`ssm_apply`).
+On a mesh the decode's conv state is its piece in the rules' layout
+(:func:`conv_to_layout`, :func:`conv_from_layout`).
 """
 from __future__ import annotations
 
@@ -120,15 +123,20 @@ def _weights(p: Mamba2Mixer):
     return w, sh
 
 
-def _project(w: dict, sh, x):
+def _project(w: dict, sh, x, sp=None):
     """z, x, B, C and dt of ``x``: the per-head projections
-    column-parallel, B and C whole."""
+    column-parallel, B and C whole (computed alike on every rank).  Under
+    sequence parallelism (``sp``) ``x`` entered the heads in its
+    ``gather_seq``, and B and C read it once over the group."""
     cd = x.dtype
-    xt = shd.copy_to_model(x, sh)
+    if sp is None:
+        xt, xg = shd.copy_to_model(x, sh), x
+    else:
+        xt, xg = x, shd.once_over_model(x, sp)
     z = xt @ w["wz"].to(cd)
     xin = xt @ w["wx"].to(cd)
-    B = x @ w["wB"].to(cd)
-    C = x @ w["wC"].to(cd)
+    B = xg @ w["wB"].to(cd)
+    C = xg @ w["wC"].to(cd)
     dt = F.softplus((xt @ w["wdt"].to(cd)).float() + w["dt_bias"].float())
     return z, xin, B, C, dt
 
@@ -170,24 +178,42 @@ def _gated_norm(cfg: ModelConfig, sh, y, w):
             * w.float()).to(dt)
 
 
-def _finish(cfg: ModelConfig, w: dict, sh, y, x_heads, z):
+def _finish(cfg: ModelConfig, w: dict, sh, y, x_heads, z, sp=None):
+    """The D skip, the gate, the gated norm and ``wo`` (row-parallel: the
+    partial sums summed over the group, or left to the caller under
+    ``sp``)."""
     b, s = y.shape[0], y.shape[1]
     y = y + w["D"].float()[None, None, :, None] * x_heads.float()
     y = y.reshape(b, s, -1).to(z.dtype)
     y = y * F.silu(z)
     y = _gated_norm(cfg, sh, y, w["norm"])
-    return shd.reduce_from_model(y @ w["wo"].to(z.dtype), sh)
+    y = y @ w["wo"].to(z.dtype)
+    return y if sp is not None else shd.reduce_from_model(y, sh)
 
 
 def ssm_apply(cfg: ModelConfig, p: Mamba2Mixer, x, *, chunk: int = 128,
-              initial_state=None, use_pallas: bool = False):
+              initial_state=None, use_pallas: bool = False, sp=None):
     """x: [B, S, d].  Returns (out [B, S, d], (conv_state, ssm_state)), the
-    SSM state [B, heads, P, N] in f32 (on a mesh, this rank's heads)."""
+    SSM state [B, heads, P, N] in f32 (on a mesh, this rank's heads).
+
+    Under sequence parallelism (``sp``: ``x`` and ``out`` hold this rank's
+    positions) the mixer reads the whole sequence: on split SSM heads
+    through ``gather_seq`` (the SSD chunk on the local heads over every
+    position, ``wo``'s partial sums reduce-scattered onto the positions),
+    on heads the fallback left whole on every rank alike (each keeps its
+    positions).  The states are those of the whole sequence."""
+    if sp is not None:
+        if shd.model_shard(p, "A_log") is None:
+            out, states = ssm_apply(
+                cfg, p, shd.gather_from_model(x, sp), chunk=chunk,
+                initial_state=initial_state, use_pallas=use_pallas)
+            return shd.split_seq(out, sp), states
+        x = shd.gather_seq(x, sp)
     b, s, _ = x.shape
     w, sh = _weights(p)
     nh, hd, st, g = (w["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state,
                      cfg.ssm_groups)
-    z, xin, B, C, dt = _project(w, sh, x)
+    z, xin, B, C, dt = _project(w, sh, x, sp)
     conv_state_in = initial_state[0] if initial_state is not None else None
     xin, B, C, conv_state = _conv_silu(w, sh, xin, B, C, conv_state_in)
 
@@ -236,20 +262,70 @@ def ssm_apply(cfg: ModelConfig, p: Mamba2Mixer, x, *, chunk: int = 128,
     y_inter = torch.einsum("bclhn,bchpn,bchl->bclhp", Ch, h_prevs,
                            torch.exp(cs))
     y = (y_intra + y_inter).reshape(b, s, nh, hd)
-    out = _finish(cfg, w, sh, y, xin.reshape(b, s, nh, hd), z)
-    return out, (conv_state, h.float())
+    out = _finish(cfg, w, sh, y, xin.reshape(b, s, nh, hd), z, sp)
+    return shd.scatter_seq(out, sp), (conv_state, h.float())
+
+
+CONV_AXES = ("batch", None, "ssm_inner")   # a layer's conv state
+
+
+def conv_layout(cfg: ModelConfig, p: Mamba2Mixer, sh):
+    """(the rules' piece ``(dim, start, stop)`` of a layer's conv state
+    [B, K-1, x | B | C] on this rank, or None where it is whole; the
+    channels of the mixer's own layout: the x channels of its heads
+    ``sh`` (all without a shard), then B and C)."""
+    c = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    piece = shd.model_piece(CONV_AXES, (1, 1, c), shd.model_group(p))
+    if sh is None:
+        return piece, torch.arange(c)
+    p_ = cfg.ssm_head_dim
+    return piece, torch.cat([torch.arange(sh.start * p_, sh.stop * p_),
+                             torch.arange(cfg.d_inner, c)])
+
+
+def conv_to_layout(cfg: ModelConfig, p: Mamba2Mixer, conv, sh):
+    """A conv state in the mixer's layout (its heads' x channels, B, C),
+    the rules' piece of the whole one on a mesh: the pieces gathered over
+    ``"model"`` and the mixer's channels kept."""
+    piece, keep = conv_layout(cfg, p, sh)
+    if piece is not None:
+        conv = shd.gather_from_model(conv, shd.ModelShard(
+            piece[0], piece[1], piece[2], shd.model_group(p)))
+    return conv.index_select(-1, keep.to(conv.device))
+
+
+def conv_from_layout(cfg: ModelConfig, p: Mamba2Mixer, conv, sh):
+    """A conv state in the mixer's layout -> this rank's piece of the
+    whole one in the rules' layout: the x channels of every head gathered
+    over the heads' group."""
+    piece, _ = conv_layout(cfg, p, sh)
+    if sh is not None:
+        n_x = (sh.stop - sh.start) * cfg.ssm_head_dim
+        conv = torch.cat([shd.gather_from_model(conv[..., :n_x], sh,
+                                                dim=-1),
+                          conv[..., n_x:]], dim=-1)
+    return conv if piece is None else conv[..., piece[1]:piece[2]]
 
 
 def ssm_decode(cfg: ModelConfig, p: Mamba2Mixer, x, conv_state, ssm_state):
     """One-token decode.  x: [B, 1, d]; states as :func:`ssm_apply` returns
-    them.  The conv state is taken in ``x.dtype`` and returned in it."""
+    them, but on a mesh the conv state is this rank's piece of the whole
+    one in the rules' layout (split over ``"model"`` on its channels
+    where they divide), read and returned so.  The conv state is taken in
+    ``x.dtype`` and returned in it."""
     b = x.shape[0]
     w, sh = _weights(p)
     nh, hd, st, g = (w["A_log"].shape[0], cfg.ssm_head_dim, cfg.ssm_state,
                      cfg.ssm_groups)
     z, xin, B, C, dt = _project(w, sh, x)
-    xin, B, C, conv_state = _conv_silu(w, sh, xin, B, C,
-                                       conv_state.to(xin.dtype))
+    on_mesh = shd.model_group(p) is not None
+    conv_in = held = conv_state.to(xin.dtype)
+    if on_mesh:
+        conv_in = conv_to_layout(cfg, p, held, sh)
+    xin, B, C, conv_state = _conv_silu(w, sh, xin, B, C, conv_in)
+    if on_mesh:      # the held piece moves by one row: the new inputs'
+        conv_state = torch.cat([held[:, 1:], conv_from_layout(
+            cfg, p, conv_state[:, -1:], sh)], dim=1)
     xh = xin.reshape(b, nh, hd).float()
     Bh = _per_head(cfg, sh, B.reshape(b, g, st), 1).float()
     Ch = _per_head(cfg, sh, C.reshape(b, g, st), 1).float()

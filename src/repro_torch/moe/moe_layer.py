@@ -28,7 +28,9 @@ E/n of them: the router is gathered whole, so the routing and the bucket
 plan (the count kernel on each rank) are the same on every rank of the
 group; each rank runs its own experts on their ``[E/n, C, d]`` rows,
 combines their weighted outputs, and the partial ``[T, d]`` sums are
-summed over the group.
+summed over the group.  Under sequence parallelism
+(:func:`moe_apply_seq`) the layer gathers the sequence in and
+reduce-scatters its partial sums back onto each rank's positions.
 """
 from __future__ import annotations
 
@@ -119,14 +121,28 @@ def _local_plan(plan, sh, e: int):
                                kept=plan.kept & mine), sh.stop - sh.start
 
 
-def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
+def _entries(x, sh, sp):
+    """(x for the router, x for the experts): the router's compute is the
+    same on every rank of the group, the experts' is this rank's.  ``x``
+    enters the experts of ``sh`` here, or (under sequence parallelism,
+    ``sp``) it entered them in its ``gather_seq`` and the router reads it
+    once over the group."""
+    if sp is None:
+        return x, shd.copy_to_model(x, sh)
+    return shd.once_over_model(x, sp), x
+
+
+def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train",
+                  sp=None):
     """AAM dispatch.  x: [T, d] -> (y [T, d], metrics
-    ``{"moe_dropped", "moe_aux"}``)."""
+    ``{"moe_dropped", "moe_aux"}``).  With ``sp`` (see
+    :func:`moe_apply_seq`) ``y`` is this rank's experts' partial sum."""
     t, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = _capacity(cfg, t, dropless=mode != "train")
     sh = shd.model_shard(p, "wi")
-    w, experts, probs = _route(cfg, p, x)
+    x_route, x_experts = _entries(x, sh, sp)
+    w, experts, probs = _route(cfg, p, x_route)
 
     # flatten the T x k assignments into one message batch
     owner = experts.reshape(-1)                          # [T*k]
@@ -137,8 +153,7 @@ def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
     # coalesced payload: the [E, C, d] activation buffer (this rank's
     # [E/n, C, d] rows on a mesh)
     local, e_local = _local_plan(plan, sh, e)
-    xb = scatter_to_buckets(local, shd.copy_to_model(x, sh)[token],
-                            e_local, cap, fill=0)
+    xb = scatter_to_buckets(local, x_experts[token], e_local, cap, fill=0)
     xb = shd.logical_constraint(shd.ShardingRules(shd.TRAIN_RULES), xb,
                                 ("experts", "expert_capacity", None))
     yb = _expert_ffn(cfg, p, xb)
@@ -146,7 +161,9 @@ def moe_apply_aam(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
     mine = experts if sh is None else (  # others are not kept locally
         experts - sh.start).clamp(0, e_local - 1)
     out = _combine(yb, local, mine, shd.copy_to_model(w, sh), cap)
-    return shd.reduce_from_model(out, sh), {
+    if sp is None:
+        out = shd.reduce_from_model(out, sh)
+    return out, {
         "moe_dropped": plan.dropped, "moe_aux": aux_loss(cfg, probs,
                                                          experts)}
 
@@ -165,12 +182,16 @@ def _combine(yb, plan, experts, w, cap: int):
     return torch.einsum("tkd,tk->td", y, wk)
 
 
-def moe_apply_dense(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
-    """GShard one-hot dispatch (the oracle).  O(T·E·C) memory: small T."""
+def moe_apply_dense(cfg: ModelConfig, p: MoE, x, mode: str = "train",
+                    sp=None):
+    """GShard one-hot dispatch (the oracle).  O(T·E·C) memory: small T.
+    ``sp`` as in :func:`moe_apply_aam`."""
     t, d = x.shape
     k, e = cfg.experts_per_token, cfg.num_experts
     cap = _capacity(cfg, t, dropless=mode != "train")
-    w, experts, probs = _route(cfg, p, x)
+    sh = shd.model_shard(p, "wi")
+    x_route, x_experts = _entries(x, sh, sp)
+    w, experts, probs = _route(cfg, p, x_route)
 
     onehot = F.one_hot(experts.long(), e)                # [T, k, E]
     kth = onehot.sum(1)                                  # [T, E] (0/1)
@@ -179,19 +200,42 @@ def moe_apply_dense(cfg: ModelConfig, p: MoE, x, mode: str = "train"):
     keep_k = pos_k < cap
     poh = F.one_hot(torch.where(keep_k, pos_k, cap), cap + 1)[..., :cap] \
         .to(x.dtype)                                     # [T, k, C]
-    sh = shd.model_shard(p, "wi")
     oh = onehot.to(x.dtype)
     if sh is not None:                  # this rank's experts
         oh = oh[..., sh.start:sh.stop]
     dmat = torch.einsum("tke,tkc->tec", oh, poh)
-    xb = torch.einsum("td,tec->ecd", shd.copy_to_model(x, sh), dmat)
+    xb = torch.einsum("td,tec->ecd", x_experts, dmat)
     yb = _expert_ffn(cfg, p, xb)
     wmat = torch.einsum("tk,tke,tkc->tec",
                         shd.copy_to_model(w, sh).to(x.dtype), oh, poh)
-    out = shd.reduce_from_model(torch.einsum("ecd,tec->td", yb, wmat), sh)
+    out = torch.einsum("ecd,tec->td", yb, wmat)
+    if sp is None:
+        out = shd.reduce_from_model(out, sh)
     dropped = (t * k - keep_k.sum()).to(torch.int32)
     return out, {"moe_dropped": dropped,
                  "moe_aux": aux_loss(cfg, probs, experts)}
+
+
+def moe_apply_seq(cfg: ModelConfig, p: MoE, h, sp, impl: str = "aam",
+                  mode: str = "train"):
+    """The layer under sequence parallelism: ``h`` [B, S/n, d] holds this
+    rank's positions ``sp``.  Experts split over ``"model"`` read the
+    whole sequence (``gather_seq``: the router and the bucket plan, the
+    count kernel among it, run on every token of the rank's batch rows,
+    so capacity follows the tokens the layer sees, as without sequence
+    parallelism) and their partial sums go back onto each rank's
+    positions (``scatter_seq``); experts the fallback left whole run on
+    the whole sequence on every rank, and each keeps its positions.
+    Returns (y [B, S/n, d], metrics)."""
+    b, _, d = h.shape
+    if shd.model_shard(p, "wi") is None:
+        x = shd.gather_from_model(h, sp)
+        y, metrics = moe_apply(cfg, p, x.reshape(-1, d), impl, mode)
+        return shd.split_seq(y.reshape(b, -1, d), sp), metrics
+    x = shd.gather_seq(h, sp)
+    fn = moe_apply_dense if impl == "dense" else moe_apply_aam
+    y, metrics = fn(cfg, p, x.reshape(-1, d), mode=mode, sp=sp)
+    return shd.scatter_seq(y.reshape(b, -1, d), sp), metrics
 
 
 def moe_apply(cfg: ModelConfig, p: MoE, x2d, impl: str = "aam",

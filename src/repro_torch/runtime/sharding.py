@@ -33,6 +33,13 @@ a layer reads its weights' ``"model"`` shards, gathered over the batch
 axes only, and crosses between replicated and sharded activations
 through :func:`copy_to_model` and :func:`reduce_from_model`, as XLA's
 SPMD partitioner runs the reference's einsums on the rules' shards.
+Under sequence parallelism (the rules' ``act_seq``) the activations
+between layers hold each rank's positions and cross to the whole
+sequence through :func:`gather_seq`, :func:`scatter_seq` and
+:func:`split_seq`; :func:`seq_shard` gives a rank its positions of a
+sequence (``act_seq``) or a cache ring (``cache_seq``), and
+:func:`model_piece` its piece of any tensor the rules split over
+``"model"``.
 """
 from __future__ import annotations
 
@@ -457,20 +464,10 @@ class _ReduceFromModel(torch.autograd.Function):
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
-        import torch.distributed as dist
-        from torch.distributed import _functional_collectives as funcol
         mesh, d = group
         ctx.dim, ctx.size = dim, x.shape[dim]
         ctx.start = mesh.get_local_rank(d) * ctx.size
-        if x.is_cuda and dist.get_backend(mesh.get_group(d)) == "gloo":
-            # gloo gathers no CUDA tensor: the same values as the sum of
-            # the zero-padded pieces
-            shape = list(x.shape)
-            shape[dim] *= mesh.size(d)
-            whole = x.new_zeros(shape)
-            whole.narrow(dim, ctx.start, ctx.size).copy_(x)
-            return _all_reduce(whole, "sum", group)
-        return _wait(funcol.all_gather_tensor(x.contiguous(), dim, group))
+        return _all_gather(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -503,6 +500,205 @@ def max_over_model(x, shard: ModelShard | None):
     autograd (a softmax's shift)."""
     return x if shard is None else _all_reduce(x.detach(), "max",
                                                shard.group)
+
+
+# ---------------------------------------------------------------------------
+# The sequence over "model"
+#
+# Under sequence parallelism (``rcfg.seq_parallel`` where the rules split
+# ``act_seq``) the residual stream between layers holds this rank's
+# positions ``[B, S/n, d]``: the norms, residual adds and attention's
+# queries run on them.  A layer that computes on its "model" shard of the
+# weights (the MLP, the experts, the SSM heads, the vocab) reads the whole
+# sequence and leaves partial sums of it:
+#
+#   gather_seq   all-gather forward, reduce-scatter backward: local
+#                positions entering sharded compute on the whole sequence
+#                (each rank's gradient is a partial sum); also a weight's
+#                shard read whole by compute on local positions
+#   scatter_seq  reduce-scatter forward, all-gather backward: partial sums
+#                of the whole sequence onto each rank's positions
+#   split_seq    this rank's positions forward, all-gather backward: a
+#                whole tensor every rank computed alike, to local positions
+#
+# ``gather_from_model`` (all-gather, this rank's slice backward) takes
+# local positions into compute that every rank repeats on the whole
+# sequence, ``copy_to_model`` a whole tensor into compute on local
+# positions (a weight the fallback left whole: its gradient is a partial
+# sum over the positions), and ``once_over_model`` marks the part of a
+# ``gather_seq`` result that replicated compute reads.  A ``ModelShard``
+# whose ``dim`` is the sequence's describes this rank's positions.
+# ---------------------------------------------------------------------------
+
+
+def _gloo_cuda(x, group) -> bool:
+    """gloo on CUDA tensors: it gathers none (it segfaults in torch 2.11)
+    and may reduce-scatter none; the all-reduce forms below give the same
+    values."""
+    import torch.distributed as dist
+    mesh, d = group
+    return x.is_cuda and dist.get_backend(mesh.get_group(d)) == "gloo"
+
+
+def _all_gather(x, dim: int, group):
+    from torch.distributed import _functional_collectives as funcol
+    mesh, d = group
+    if _gloo_cuda(x, group):
+        shape = list(x.shape)
+        shape[dim] *= mesh.size(d)
+        whole = x.new_zeros(shape)
+        whole.narrow(dim, mesh.get_local_rank(d) * x.shape[dim],
+                     x.shape[dim]).copy_(x)
+        return _all_reduce(whole, "sum", group)
+    return _wait(funcol.all_gather_tensor(x.contiguous(), dim, group))
+
+
+def _reduce_scatter(x, dim: int, group):
+    from torch.distributed import _functional_collectives as funcol
+    mesh, d = group
+    if _gloo_cuda(x, group):
+        per = x.shape[dim] // mesh.size(d)
+        return _all_reduce(x, "sum", group).narrow(
+            dim, mesh.get_local_rank(d) * per, per).contiguous()
+    return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim,
+                                              group))
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, start, stop, group):
+        ctx.dim, ctx.group = dim, group
+        return x.narrow(dim, start, stop - start)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None, None, None
+
+
+class _OnceOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        mesh, d = group
+        ctx.first = mesh.get_local_rank(d) == 0
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.first else torch.zeros_like(g)), None
+
+
+def gather_seq(x, shard: ModelShard | None):
+    """``x``, this rank's piece along ``shard.dim``, all-gathered whole;
+    its gradient, a partial sum on every rank, reduce-scattered back.
+    Identity without a shard."""
+    if shard is None:
+        return x
+    return _GatherSeq.apply(x, shard.dim % x.dim(), shard.group)
+
+
+def scatter_seq(x, shard: ModelShard | None):
+    """Partial sums ``x`` of the whole sequence summed over ``shard``'s
+    group onto this rank's positions (its gradient all-gathered).
+    Identity without a shard."""
+    if shard is None:
+        return x
+    return _ScatterSeq.apply(x, shard.dim % x.dim(), shard.group)
+
+
+def split_seq(x, shard: ModelShard | None):
+    """This rank's positions of ``x`` (whole and the same on every rank
+    of the group); its gradient all-gathered.  Identity without a
+    shard."""
+    if shard is None:
+        return x
+    return _SplitSeq.apply(x, shard.dim % x.dim(), shard.start, shard.stop,
+                           shard.group)
+
+
+def once_over_model(x, shard: ModelShard | None):
+    """``x`` (a :func:`gather_seq` result) read by compute that every rank
+    of the group repeats: its gradient, the same on every rank, is kept on
+    the group's first rank only, so the reduce-scatter of ``gather_seq``
+    counts it once.  Identity without a shard."""
+    return x if shard is None else _OnceOverModel.apply(x, shard.group)
+
+
+def model_group(module) -> tuple | None:
+    """``(mesh, mesh dim)`` of the ``"model"`` group of ``module``'s bound
+    leaves (:func:`gather_on_use`), whether or not the rules split them;
+    None without a mesh or on a model axis of one."""
+    for x in getattr(module, "_bound", {}).values():
+        if is_dtensor(x):
+            mesh = x.device_mesh
+            names = list(mesh.mesh_dim_names)
+            if MODEL in names and mesh.size(names.index(MODEL)) > 1:
+                return mesh, names.index(MODEL)
+            return None
+    return None
+
+
+def model_piece(axes, shape, group, rules: ShardingRules | None = None):
+    """``(dim, start, stop)``: the entries of dim ``dim`` that this rank
+    of ``group`` holds of a tensor of ``shape`` and logical ``axes`` where
+    the rules give ``"model"`` to that dim (the divisibility fallback and
+    the used-axis rule applied), else None.  Only the ``"model"`` axis is
+    looked at: a batch dim is split over the others by the caller."""
+    if group is None:
+        return None
+    mesh, d = group
+    n = mesh.size(d)
+    spec = (rules or ShardingRules(TRAIN_RULES)).spec_for(
+        axes, shape, _Sizes({MODEL: n}))
+    for dim, entry in enumerate(spec):
+        if entry is not None and MODEL in (entry if isinstance(entry, tuple)
+                                           else (entry,)):
+            per = shape[dim] // n
+            r = mesh.get_local_rank(d)
+            return dim, r * per, (r + 1) * per
+    return None
+
+
+class _Sizes:
+    """A mesh seen only through its axis sizes (``mesh_shape``)."""
+
+    def __init__(self, shape: dict):
+        self.shape = shape
+
+
+def seq_shard(module, length: int, name: str = "act_seq", dim: int = 1,
+              rules: ShardingRules | None = None) -> ModelShard | None:
+    """This rank's positions ``[start, stop)`` of a sequence of ``length``
+    under the rules' ``name`` (``"act_seq"`` or ``"cache_seq"``) on the
+    mesh of ``module``'s bound leaves, as a :class:`ModelShard` of tensor
+    dim ``dim``; None without a mesh or where the divisibility fallback
+    keeps the sequence whole."""
+    group = model_group(module)
+    piece = model_piece((name,), (length,), group, rules)
+    if piece is None:
+        return None
+    return ModelShard(dim, piece[1], piece[2], group)
 
 
 def gather_local(x, grad_placements):

@@ -64,8 +64,11 @@ def generate(cfg: ModelConfig, rcfg: RunConfig, model, batch, *,
              device="cuda"):
     """Prefill the prompt batch ``{"tokens": [B, S]}`` (plus ``"frames"``
     for whisper or ``"patch_embeds"`` for the vlm prefix), then decode
-    ``max_new_tokens`` tokens.  ``model`` lies on ``device``.  Returns
-    tokens [B, max_new_tokens] int32."""
+    ``max_new_tokens`` tokens.  ``model`` lies on ``device``; on a mesh
+    (sharded serving) the cache is grown and placed in the rules' layout
+    at the end of the prefill (:func:`repro_torch.models.model.
+    place_cache`) and the decode reads it there.  Returns tokens [B,
+    max_new_tokens] int32."""
     dev = resolve_device(device)
     model_dev = model.embed.embedding.device
     if model_dev.type != dev.type:
@@ -75,8 +78,8 @@ def generate(cfg: ModelConfig, rcfg: RunConfig, model, batch, *,
     prompt_len = batch["tokens"].shape[1]
     if cfg.frontend == "patch":
         prompt_len += cfg.frontend_seq
-    logits, cache = M.prefill(cfg, rcfg, model, batch)
-    cache = pad_cache(cfg, cache, prompt_len + max_new_tokens)
+    logits, cache = M.prefill(cfg, rcfg, model, batch,
+                              max_len=prompt_len + max_new_tokens)
     generator = torch.Generator(device=model_dev).manual_seed(seed)
     tok = sample(logits, generator, temperature)
     toks = [tok]

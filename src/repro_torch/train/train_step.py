@@ -38,6 +38,12 @@ unsharded step's on each shard, where the reference's SPMD step routes the
 global batch in every MoE layer.  Within a ``"model"`` group every rank
 routes the same tokens, so the experts' split changes nothing there.
 
+With ``rcfg.seq_parallel``, where the rules split ``act_seq``, the
+step is sequence-parallel over ``"model"`` as well
+(:func:`repro_torch.models.lm.apply_layer`), in remat's recomputation and
+in each microbatch alike: a weight read by compute on a rank's positions
+has a partial gradient, summed over the group by its crossing.
+
 :func:`constrain_like_params` pins a gradient tree to the parameters'
 layout when its leaves are DTensors (``rcfg.shard_grads``); on plain
 tensors it is the identity.  The explicit data-parallel step with int8

@@ -217,3 +217,41 @@ def test_device_cost_is_rank_zeros_share(arch, over, share):
         assert "heads 3, kv_heads 1" in rec["compute_note"]
     t = R.terms(rec)
     assert t["t_compute_device"] == dev["flops"] / R.PEAK_FLOPS
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-780m"])
+def test_seq_parallel_cuts_the_activation_all_reduces(arch):
+    """``--seq-parallel`` on a 2 x 2 train cell: the sequence is gathered
+    and reduce-scattered over ``"model"`` where the layers all-reduced
+    their ``[tokens, d]`` activations, so fewer all-reduce wire bytes and
+    more reduce-scatters; the compute note says so."""
+    cfg = smoke_model(ARCHS[arch])
+    tp = D.build_cell(arch, "train", False, cfg=cfg, shape=SHAPES["train"],
+                      mesh=MESH)
+    sp = D.build_cell(arch, "train", False, {"seq_parallel": True}, cfg=cfg,
+                      shape=SHAPES["train"], mesh=MESH)
+    wire = {k: (tp["collectives"]["per_op"][k], sp["collectives"]["per_op"][k])
+            for k in ("all-reduce", "reduce-scatter")}
+    a, b = wire["all-reduce"]
+    assert b["wire_bytes"] < a["wire_bytes"] / 4, wire
+    a, b = wire["reduce-scatter"]
+    assert b["count"] > a["count"], wire
+    assert sp["compute_note"].startswith("sequence-parallel")
+    assert tp["compute_note"].startswith("tensor-parallel")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "whisper-small"])
+def test_decode_cell_reads_the_cache_in_place(arch):
+    """A decode cell on (data 1, model 2): each rank's cache is its half
+    of every ring (``cache_seq``), read where it lies: no all-gather
+    moves as many bytes as one layer's whole K leaf."""
+    cfg = smoke_model(ARCHS[arch])
+    shape = ShapeConfig("d", 64, 8, "decode")
+    rec = D.build_cell(arch, "decode", False, cfg=cfg, shape=shape,
+                       mesh=((1, 2), ("data", "model")))
+    rcfg = D.run_config(cfg, shape, False, {})
+    cache = M.cache_specs(cfg, rcfg, shape)
+    k = (cache["k"] if isinstance(cache, dict) else cache[0]["k"])[0]
+    whole_leaf = k.numel() * k.element_size()
+    gathers = rec["collectives"]["per_op"]["all-gather"]
+    assert 0 < gathers["result_bytes"] < whole_leaf, gathers
