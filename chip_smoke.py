@@ -203,10 +203,32 @@ Phases, one or more lines each:
    ``generate()``'s, decode ms a token, cache GiB a rank; (d) the dry
    run's four train_4k cells with ``--seq-parallel`` beside 15c's, and
    14c's qwen2 decode_32k cell, which reads its cache in place.
+17. the examples and the wave engine across ranks, after phase 16: (a)
+   the five scripts of ``examples_torch/`` (quickstart, graph_analytics
+   ``--distributed``, distributed_pagerank, serve_queries, train_lm's
+   300 steps of lm-100m and a second run resuming from step 300), each a
+   subprocess on the card in its own directory under
+   ``chiprun_out/phase17a``, the five at once, each exiting 0 on its own
+   asserts (the two distributed scripts spawn 8 gloo ranks on the card);
+   (b) ``run_distributed`` at world size 8: 8 spawned gloo ranks sharing
+   ``cuda:0`` (collectives through host memory; the kernels built in the
+   parent) run ``distributed_bfs`` (C = auto and C = 2**14, where
+   sub-rounds exceed rounds), ``distributed_sssp`` and
+   ``distributed_pagerank`` (20 iterations) on ``fused`` on phase 4's
+   scale-21 graph (saved with phase 4's answers after phase 13c), equal
+   to phase 4's bit for bit (ranks within rtol 2e-4 / atol 1e-6), and
+   ``distributed_bfs``, ``distributed_stconn`` (to a reached and an
+   unreached vertex), ``distributed_coloring`` and
+   ``distributed_boruvka`` on ``pallas`` on the scale-16 tenant (phase 5's
+   graph, phase 8d's tenant 0), equal to the single-shard runs, every
+   message delivered; ms a round beside phase 6's, sub-rounds, each
+   rank's peak GiB; (c) ``distributed_bfs`` and ``distributed_boruvka``
+   there with ``snapshot_rounds=2`` and a fault before chunk 1 on every
+   rank: the mesh shrinks 8 -> 7 and the answers equal (b)'s.
 
-Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14, 15 and 16 (run in that order) are
-the main path: each zeroes the kernels' launch counters before it (each
-part of phase 13 before it) and reads them after, and fails if a kernel
+Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14, 15, 16 and 17 (run in that
+order) are the main path: each zeroes the kernels' launch counters
+before it (each part of phase 13 before it) and reads them after, and fails if a kernel
 of its path was not launched (phase 6: the
 bucket count, and the fused kernel with 4 lanes; phases 8 and 10: both
 commit kernels and the bucket count; phase 9: a commit kernel and the
@@ -217,7 +239,10 @@ phase 14: the bucket count as remat implies, in the sharded steps and in
 each pipeline stage, whose counters its processes report; phase 15: the
 bucket count as remat implies on each rank's steps, the SSD kernel once
 per layer on each rank's prefill; phase 16: the same on the
-sequence-parallel step and prefill).
+sequence-parallel step and prefill; phase 17: both commit kernels and
+the bucket count on the ranks of (b) and (c), whose counters they
+report; the examples of (a) run in subprocesses of their own and are
+not counted).
 Every wrapper launches its kernel through a dispatched op
 (``torch.ops.repro_torch.*``), so the call ms below include the op's
 dispatch.  Then one
@@ -708,7 +733,9 @@ def phase_count_times(g, device):
 def phase_engine(g, device, single):
     """Phase 6: the wave engine at world size 1 on ``pallas`` and
     ``fused``, held to phase 4's single-shard results.  Returns the
-    kernels' launch counts of this phase."""
+    kernels' launch counts of this phase and, by backend and algorithm,
+    its (ms a round, sub-rounds a round), which phase 17b prints beside
+    its own."""
     import numpy as np
     import torch
     from repro_torch.core.commit import CommitSpec
@@ -738,6 +765,7 @@ def phase_engine(g, device, single):
     mesh = make_mesh(device=device)
     launches = {name: 0 for name in kernels}
     lane_fused = 0
+    figures = {}
     for backend in ("pallas", "fused"):
         kw = dict(capacity=ENGINE_CAPACITY, telemetry=True,
                   spec=CommitSpec(backend=backend, stats=False))
@@ -765,6 +793,9 @@ def phase_engine(g, device, single):
             if name.startswith("multi_bfs"):
                 lane_fused += fused_route_commit_kernel.launches - before
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            figures.setdefault(backend, {})[name] = (
+                (wall - setup) / res.rounds * 1e3,
+                res.subrounds / res.rounds)
             say(f"phase 6: {backend:6s} {name:14s} {res.rounds} rounds, "
                 f"{(wall - setup) / res.rounds * 1e3:.2f} ms/round "
                 f"(call {wall * 1e3:.1f} ms), "
@@ -800,7 +831,7 @@ def phase_engine(g, device, single):
     if lane_fused < 1:
         raise AssertionError(f"fused_route_commit was not launched with "
                              f"width {LANES}")
-    return launches
+    return launches, figures
 
 
 def graph_kernels():
@@ -4305,6 +4336,345 @@ def phase_sequence_parallel(device, dryrun):
     return launches
 
 
+DIST_WORLD = 8                     # phase 17b-c: gloo ranks sharing cuda:0
+DIST_MAX_SUBROUNDS = 256           # phase 17b-c: a wave's sub-round cap
+REQUEUE_CAPACITY = 2 ** 14         # phase 17b: BFS with sub-round requeue
+TENANT_CAPACITY = 2 ** 15          # phase 17b-c: C on the scale-16 tenant
+DIST_TIMEOUT_S = 600
+EXAMPLE_TIMEOUT_S = 300
+TRAIN_RESUME_STEPS = 310           # phase 17a: train_lm's second run
+
+
+def phase17_inputs(g, single, device):
+    """What phase 17b's ranks read, saved to ``build/phase17/`` while
+    phase 4's graph is on the card: the scale-21 graph with both weight
+    arrays and phase 4's ``pallas`` answers; the scale-16 tenant (phase
+    5's graph, phase 8d's tenant 0) with phase 8's single-shard answers
+    on it, computed here as phase 8 computes them.  Returns the
+    directory and the host seconds of the saves."""
+    import torch
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.bfs import bfs
+    from repro_torch.graphs.algorithms.boruvka import boruvka
+    from repro_torch.graphs.algorithms.coloring import coloring
+    from repro_torch.graphs.algorithms.stconn import st_connectivity
+    from repro_torch.graphs.generators import kronecker, random_weights
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "phase17"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    bfs0, sssp0, ranks0 = single
+
+    def host(graph):
+        return {"indptr": graph.indptr.cpu(), "src": graph.src.cpu(),
+                "dst": graph.dst.cpu(), "weights": graph.weights.cpu(),
+                "num_vertices": graph.num_vertices,
+                "num_edges": graph.num_edges}
+    gw = random_weights(g, seed=0)
+    torch.save({"graph": host(g), "sssp_weights": gw.weights.cpu(),
+                "source": int(torch.argmax(g.degrees)),
+                "bfs": bfs0.dist.cpu(), "sssp": sssp0.cpu(),
+                "ranks": ranks0.cpu()}, out_dir / "scale21.pt")
+    del gw
+    t = kronecker(16, 16, seed=SEED, device=device)
+    tw = random_weights(t, seed=0)
+    spec = CommitSpec(backend="pallas", stats=False)
+    src = int(torch.argmax(t.degrees))
+    dist = bfs(t, src, spec=spec).dist
+    far, lone = far_and_lone(dist)
+    color, rc, nc = coloring(t, seed=0, spec=spec)
+    comp, w, ne, rb = boruvka(tw, spec=spec)
+    torch.save({"graph": host(t), "mst_weights": tw.weights.cpu(),
+                "source": src, "far": far, "lone": lone, "bfs": dist.cpu(),
+                "stconn": {far: bool(st_connectivity(t, src, far,
+                                                     spec=spec)[0]),
+                           lone: bool(st_connectivity(t, src, lone,
+                                                      spec=spec)[0])},
+                "coloring": (color.cpu(), rc, bool(nc)),
+                "boruvka": (comp.cpu(), w.cpu(), int(ne), rb)},
+               out_dir / "tenant.pt")
+    return out_dir, time.perf_counter() - t0
+
+
+def _run_examples(runs, cwd, env):
+    """Each run of ``runs`` (argv lists of ``examples_torch/``) one after
+    another in ``cwd``: (label, completed process, host s) each."""
+    out = []
+    cwd.mkdir(parents=True, exist_ok=True)
+    for argv in runs:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples_torch" / f"{argv[0]}.py"),
+             *argv[1:]], cwd=cwd, env=env, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+        label = " ".join(a for a in argv if not a.startswith("/"))
+        out.append((label, proc, time.perf_counter() - t0))
+    return out
+
+
+def phase17_examples():
+    """Phase 17a: the five examples of ``examples_torch/``, each a
+    subprocess on the card (their default device) in its own directory
+    under ``chiprun_out/phase17a`` (its tuner cache and trace there), the
+    five at once; ``train_lm`` twice on one checkpoint directory, the
+    second run resuming from the first's last checkpoint.  Their own
+    asserts are the check; their lines are echoed.  Returns each run's
+    host seconds (with the others running beside it)."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    base = ROOT / "chiprun_out" / "phase17a"
+    ckpt = ROOT / "build" / "phase17" / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    groups = [[("quickstart",)], [("graph_analytics", "--distributed")],
+              [("distributed_pagerank",)], [("serve_queries",)],
+              [("train_lm", "--ckpt-dir", str(ckpt)),
+               ("train_lm", "--ckpt-dir", str(ckpt), "--steps",
+                str(TRAIN_RESUME_STEPS))]]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with ThreadPoolExecutor(len(groups)) as pool:
+        done = list(pool.map(lambda grp: _run_examples(
+            grp, base / grp[0][0], env), groups))
+    secs, outs = {}, {}
+    for label, proc, sec in (run for grp in done for run in grp):
+        secs[label] = sec
+        for line in proc.stdout.splitlines():
+            if line.strip():
+                say(f"phase 17a: {label.split()[0]}: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 17a: examples_torch/{label} exited "
+                                 f"{proc.returncode}:\n"
+                                 f"{proc.stderr[-6000:]}")
+        outs[label] = proc.stdout
+    first, second = list(outs.values())[-2:]
+    if "[launch] done: 300 steps" not in first or \
+            "[launch] resumed from step 300" not in second:
+        raise AssertionError("phase 17a: train_lm did not train 300 steps "
+                             "and resume from step 300")
+    return secs
+
+
+def _phase17_rank(mesh, out_dir):
+    """Rank ``mesh.rank`` of phases 17b and 17c; writes its launches and
+    peaks (rank 0 also its results) to ``out_dir/rank<r>.json``."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.commit import CommitSpec
+    from repro_torch.graphs.algorithms.bfs import distributed_bfs
+    from repro_torch.graphs.algorithms.boruvka import distributed_boruvka
+    from repro_torch.graphs.algorithms.coloring import distributed_coloring
+    from repro_torch.graphs.algorithms.pagerank import distributed_pagerank
+    from repro_torch.graphs.algorithms.sssp import distributed_sssp
+    from repro_torch.graphs.algorithms.stconn import distributed_stconn
+    from repro_torch.graphs.csr import Graph
+    out_dir = pathlib.Path(out_dir)
+    dev = mesh.device
+
+    def on_card(h):
+        return Graph(indptr=h["indptr"].to(dev), src=h["src"].to(dev),
+                     dst=h["dst"].to(dev), weights=h["weights"].to(dev),
+                     num_vertices=h["num_vertices"],
+                     num_edges=h["num_edges"])
+    big = torch.load(out_dir / "scale21.pt")
+    g = on_card(big["graph"])
+    gw = dataclasses.replace(g, weights=big["sssp_weights"].to(dev))
+    ten = torch.load(out_dir / "tenant.pt")
+    t = on_card(ten["graph"])
+    tw = dataclasses.replace(t, weights=ten["mst_weights"].to(dev))
+    src, tsrc = big["source"], ten["source"]
+    fused = CommitSpec(backend="fused", stats=False)
+    pallas = CommitSpec(backend="pallas", stats=False)
+    counted = CommitSpec(backend="pallas")      # stats: conflicts counted
+    v = g.num_vertices
+
+    def ranks_err(got):
+        exp = big["ranks"].to(dev)
+        torch.testing.assert_close(
+            got * v, exp * v, rtol=ADD_RTOL, atol=ADD_ATOL,
+            msg=lambda m: f"phase 17b distributed_pagerank: {m}")
+        return float(((got - exp).abs() / exp.abs()).max())
+
+    def same(a, b):
+        try:
+            equal("", a, b)
+        except AssertionError:
+            return False
+        return True
+    kw = dict(max_subrounds=DIST_MAX_SUBROUNDS, telemetry=True)
+    drop = dict(snapshot_rounds=2, fault_injector=_drop_at_chunk_1)
+    runs = [
+        # (name, graph, the run, its check on rank 0)
+        ("bfs C=auto", "21", lambda: distributed_bfs(
+            mesh, g, src, capacity="auto", spec=fused, **kw),
+         lambda o: same(o[0], big["bfs"])),
+        (f"bfs C=2^{REQUEUE_CAPACITY.bit_length() - 1}", "21",
+         lambda: distributed_bfs(mesh, g, src, capacity=REQUEUE_CAPACITY,
+                                 spec=fused, **kw),
+         lambda o: same(o[0], big["bfs"])),
+        ("sssp C=auto", "21", lambda: distributed_sssp(
+            mesh, gw, src, capacity="auto", spec=fused, **kw),
+         lambda o: same(o[0], big["sssp"])),
+        ("pagerank C=auto", "21", lambda: distributed_pagerank(
+            mesh, g, iters=20, capacity="auto", spec=fused, **kw),
+         lambda o: ranks_err(o[0])),
+        ("bfs", "16", lambda: distributed_bfs(
+            mesh, t, tsrc, capacity=TENANT_CAPACITY, spec=counted, **kw),
+         lambda o: same(o[0], ten["bfs"])),
+        ("stconn reached", "16", lambda: distributed_stconn(
+            mesh, t, tsrc, ten["far"], capacity=TENANT_CAPACITY,
+            spec=pallas, **kw),
+         lambda o: bool(o[0]) == ten["stconn"][ten["far"]]),
+        ("stconn unreached", "16", lambda: distributed_stconn(
+            mesh, t, tsrc, ten["lone"], capacity=TENANT_CAPACITY,
+            spec=pallas, **kw),
+         lambda o: bool(o[0]) == ten["stconn"][ten["lone"]]),
+        ("coloring", "16", lambda: distributed_coloring(
+            mesh, t, seed=0, capacity=TENANT_CAPACITY, spec=pallas, **kw),
+         lambda o: same((o[0], o[1], bool(o[2])), ten["coloring"])),
+        ("boruvka", "16", lambda: distributed_boruvka(
+            mesh, tw, capacity=TENANT_CAPACITY, spec=pallas, **kw),
+         lambda o: same((o[0], o[1], int(o[2]), o[3]), ten["boruvka"])),
+        # 17c: a fault before chunk 1 on every rank: 8 -> 7 shards
+        ("degraded bfs", "16", lambda: distributed_bfs(
+            mesh, t, tsrc, capacity=TENANT_CAPACITY, spec=pallas, **kw,
+            **drop),
+         lambda o: same(o[0], ten["bfs"])),
+        ("degraded boruvka", "16", lambda: distributed_boruvka(
+            mesh, tw, capacity=TENANT_CAPACITY, spec=pallas, **kw, **drop),
+         lambda o: same((o[0], o[1], int(o[2]), o[3]), ten["boruvka"])),
+    ]
+    # a fresh rank's first waves pay seconds of first use (the first
+    # collectives of CUDA tensors, allocations, the kernels' loads): a
+    # BFS on the tenant on each tier first, its time kept apart
+    first = {}
+    for spec in (fused, pallas):
+        dist.barrier()
+        first[spec.backend] = timed(lambda: distributed_bfs(
+            mesh, t, tsrc, capacity=TENANT_CAPACITY, spec=spec))[1] * 1e3
+    # the set-up every call repeats before its first round (the edge
+    # partition, the slices, the state), as phase 6 takes it: a
+    # 0-iteration distributed_pagerank, its second call
+    setup = {}
+    for graph, gg, spec in (("21", g, fused), ("16", t, pallas)):
+        for _ in range(2):
+            dist.barrier()
+            setup[graph] = timed(lambda: distributed_pagerank(
+                mesh, gg, iters=0, capacity="auto", spec=spec))[1]
+    out = {"rank": mesh.rank, "runs": {}, "first_ms": first,
+           "setup_ms": {k: v * 1e3 for k, v in setup.items()}}
+    clean = {}
+    kernels = graph_kernels()
+    for k in kernels.values():
+        k.launches = 0
+    for name, graph, run, check in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        (*got, res), wall = timed(run)
+        rec = {"graph": graph, "rounds": res.rounds,
+               "subrounds": res.subrounds,
+               "conflicts": int(res.conflicts) if name == "bfs" else None,
+               "delivered_all": bool(res.delivered_all),
+               "capacity": res.capacity, "shards": res.shards,
+               "degraded": bool(res.degraded), "call_ms": wall * 1e3,
+               "ms_round": (wall - setup[graph]) / max(res.rounds, 1)
+               * 1e3,
+               "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if mesh.rank == 0:
+            rec["check"] = check(got)
+            base = name.replace("degraded ", "")
+            if name.startswith("degraded "):
+                rec["equals_clean"] = same(tuple(got), clean[base])
+            else:
+                clean[name] = tuple(got)
+        out["runs"][name] = rec
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    with open(out_dir / f"rank{mesh.rank}.json", "w") as fh:
+        json.dump(out, fh)
+
+
+def phase_distributed(device, inputs, engine_ms):
+    """Phase 17: (a) the examples on the card; (b) ``run_distributed``'s
+    six algorithms at world size 8 on gloo ranks sharing ``cuda:0``, on
+    phase 4's scale-21 graph and phase 8's scale-16 tenant, held to the
+    single-shard answers; (c) degraded-mesh runs that shrink 8 -> 7.
+    Returns the graph kernels' launches of the ranks' main path."""
+    import torch
+    from repro_torch.launch.mesh import spawn_ranks
+    t_phase = time.perf_counter()
+    out_dir, t_save = inputs
+    secs = phase17_examples()
+    say(f"phase 17a: the five examples exit 0 on the card; host s "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    torch.cuda.empty_cache()
+    for p in out_dir.glob("rank*.json"):
+        p.unlink()
+    t0 = time.perf_counter()
+    spawn_ranks(_phase17_rank, DIST_WORLD, device=device,
+                args=(str(out_dir),), timeout_s=DIST_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(DIST_WORLD)]
+    zero = ranks[0]["runs"]
+    say(f"phase 17b: rank 0's first calls (a BFS on the scale-16 tenant): "
+        f"fused {ranks[0]['first_ms']['fused']:.1f} ms, then pallas "
+        f"{ranks[0]['first_ms']['pallas']:.1f} ms; set-up of a call (a "
+        f"0-iteration distributed_pagerank): scale 21 "
+        f"{ranks[0]['setup_ms']['21']:.1f} ms, scale 16 "
+        f"{ranks[0]['setup_ms']['16']:.1f} ms; ms/round below = (call - "
+        f"set-up) / rounds, host clock around synchronised work")
+    ok = True
+    for name, rec in zero.items():
+        part = "17c" if name.startswith("degraded") else "17b"
+        peaks = [r["runs"][name]["peak"] for r in ranks]
+        at1 = ""
+        algo = name.split()[0]
+        if rec["graph"] == "21" and algo in engine_ms["fused"]:
+            ms1, sub1 = engine_ms["fused"][algo]
+            at1 = (f"; phase 6 (world size 1, fused, C = 2^24): "
+                   f"{ms1:.2f} ms/round, {sub1:.2f} sub-rounds/round")
+        check = rec["check"]
+        check = (f"within rtol {ADD_RTOL:g} / atol {ADD_ATOL:g} of phase "
+                 f"4's ranks (largest relative difference {check:.3g})"
+                 if isinstance(check, float) else
+                 f"equals the single-shard answer: {check}")
+        say(f"phase {part}: scale {rec['graph']} {name:18s} "
+            f"{rec['rounds']} rounds, {rec['ms_round']:.2f} ms/round "
+            f"(call {rec['call_ms']:.1f} ms; gloo host staging, not a "
+            f"fabric), {rec['subrounds']} sub-rounds, "
+            + (f"conflicts {rec['conflicts']} (stats=True)"
+               if rec["conflicts"] is not None else
+               "conflicts not counted (stats=False)")
+            + f", C {rec['capacity']}, shards "
+            f"{rec['shards']}, degraded={rec['degraded']}, "
+            f"delivered_all={rec['delivered_all']}, {check}"
+            + (f", equals the clean 8-rank run: {rec['equals_clean']}"
+               if "equals_clean" in rec else "")
+            + f"; peak GiB a rank {[round(x, 2) for x in peaks]}{at1}")
+        ok &= rec["delivered_all"] and rec["check"] is not False
+        if part == "17c":
+            ok &= (rec["shards"] == DIST_WORLD - 1 and rec["degraded"]
+                   and rec["equals_clean"])
+        else:
+            ok &= rec["shards"] == DIST_WORLD and not rec["degraded"]
+    requeue = zero[f"bfs C=2^{REQUEUE_CAPACITY.bit_length() - 1}"]
+    if requeue["subrounds"] <= requeue["rounds"]:
+        raise AssertionError("phase 17b: the small-capacity BFS did not "
+                             "requeue (sub-rounds <= rounds)")
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in ranks[0]["launches"]}
+    say(f"phase 17b-c: {DIST_WORLD} gloo ranks on {device} (spawned, "
+        f"kernels built in the parent), {t_ranks:.1f} s with their start; "
+        f"inputs saved in {t_save:.1f} s; launches {launches}")
+    if not ok:
+        raise AssertionError("phase 17b-c: the engine at world size "
+                             f"{DIST_WORLD} vs the single-shard answers")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"phase 17: {name} was not launched")
+    say(f"phase 17: done in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4348,7 +4718,7 @@ def dryrun_cells() -> list:
 
 
 def _phases(device, dryrun, out) -> int:
-    """Phases 3 to 16 and the last two lines, beside the dry-run cells of
+    """Phases 3 to 17 and the last two lines, beside the dry-run cells of
     14c, 15c and 16d in the background."""
     import torch
     from repro_torch.graphs.algorithms.bfs import bfs, bfs_reference
@@ -4387,12 +4757,13 @@ def _phases(device, dryrun, out) -> int:
     say("phase 5: on scale 16 (pallas, fused), bfs equals bfs_reference "
         "and pagerank x V agrees with pagerank_reference (float64)")
 
-    engine_launches = phase_engine(g, device, single)
+    engine_launches, engine_ms = phase_engine(g, device, single)
     slice_launches, slice_one, batch = phase_graph_slice(g, small, device,
                                                          single)
     tuned_launches = phase_tuned(g, device, single, slice_one)
     serve_launches = phase_serving(g, device, single, slice_one, batch)
     rounds13 = phase13_rounds(g, device, round_ms)
+    inputs17 = phase17_inputs(g, single, device)
     del g, single, small, slice_one, batch
     mamba_launches, times["ssd_chunk"] = phase_mamba2(device, max_err)
     torch.cuda.empty_cache()
@@ -4405,12 +4776,13 @@ def _phases(device, dryrun, out) -> int:
     parallel_launches, unsharded = phase_parallel(device)
     tp_launches = phase_tensor_parallel(device, unsharded, (dryrun, out))
     sp_launches = phase_sequence_parallel(device, (dryrun, out))
+    dist_launches = phase_distributed(device, inputs17, engine_ms)
     mamba_launches += tp_launches["ssd_chunk"] + sp_launches["ssd_chunk"]
     parallel_launches += tp_launches["bucket_count"] + \
         sp_launches["bucket_count"]
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
-        serve_launches)) for name in KERNELS}
+        serve_launches, dist_launches)) for name in KERNELS}
     launches["ssd_chunk"] = mamba_launches
     launches["bucket_count"] += lm_launches + train_launches + \
         parallel_launches

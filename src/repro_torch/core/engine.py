@@ -20,9 +20,15 @@ This module mirrors :mod:`repro.core.engine`, with these differences:
 
 * One process per shard.  The :class:`repro_torch.launch.mesh.Mesh`
   names the process group, this rank and its device; ``_all_to_all`` is
-  ``all_to_all_single`` and ``_psum`` is ``all_reduce`` on that group
-  (NCCL on cards, gloo on the CPU).  At world size 1 both return their
-  input and no collective runs.
+  ``all_to_all_single``, ``_psum`` is ``all_reduce`` and
+  ``_all_gather_rows`` is ``all_gather`` on that group: NCCL with a card
+  a rank, gloo on the CPU and for ranks that share a card
+  (:func:`repro_torch.launch.mesh.spawn_ranks`), where gloo takes the
+  CUDA tensors through host memory.  gloo runs each of these, and the
+  broadcasts and ``new_group`` of degraded mode, on CUDA tensors
+  (``tools/gloo_probe.py``; only the functional all-gather, which the
+  engine does not use, kills the process).  At world size 1 they return
+  their input and no collective runs.
 * Each ``lax.while_loop`` is a host loop: a sub-round loop reads one
   psum'd pending count per sub-round, a round loop one ``active`` flag
   per round.  ``DistributedResult.rounds``/``subrounds`` are ints and
@@ -877,3 +883,16 @@ def run_distributed(alg: AlgorithmSpec, mesh, g, *,
     if auto_cap:
         _capacity_feedback(g, P, capacity, res.subrounds, res.rounds)
     return res
+
+
+# The entry points live with their algorithms; keep the reference's import
+# path (`from repro_torch.core.engine import distributed_bfs`) working
+# without a circular import at module load.
+def __getattr__(name):
+    if name == "distributed_bfs":
+        from repro_torch.graphs.algorithms.bfs import distributed_bfs
+        return distributed_bfs
+    if name == "distributed_pagerank":
+        from repro_torch.graphs.algorithms.pagerank import distributed_pagerank
+        return distributed_pagerank
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,12 +5,18 @@ Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so``
 under the checkout's root (a directory ``.gitignore`` lists), compiled for
 ``sm_90a`` at first use.  The hash covers the sources, the shared headers
 and the flags, so an edit rebuilds and an unchanged tree reuses the
-library.  The C entries take pointers and the stream as ``c_void_p`` and
+library.  Several processes may build at once (the ranks of a spawned
+job): :func:`build` holds a file lock on the build directory, so one of
+them compiles and the others find its libraries, and each library and
+its ptxas report are written under a temporary name and renamed into
+place.  The C entries take pointers and the stream as ``c_void_p`` and
 return ``cudaGetLastError()``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -61,11 +67,28 @@ def _target(name: str) -> pathlib.Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def _locked():
+    """The build directory's lock, held by one process at a time."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def build(names=SOURCES) -> dict[str, str]:
     """Compile every library of ``names`` not built yet, one ``nvcc`` per
     source, all started together.  Returns ``{name: ptxas report}`` for
-    the ones compiled; raises with the compiler's output on failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    the ones this call compiled; raises with the compiler's output on
+    failure.  Safe to call from several processes at once."""
+    with _locked():
+        return _build_unlocked(names)
+
+
+def _build_unlocked(names) -> dict[str, str]:
     procs = {}
     try:
         for name in names:
@@ -84,8 +107,12 @@ def build(names=SOURCES) -> dict[str, str]:
             if proc.returncode != 0:
                 failed.append(f"nvcc failed for {name}.cu:\n{log}")
                 continue
+            # the report first: a library that exists has its report
+            report = out.with_suffix(".ptxas.txt")
+            tmp_report = report.with_suffix(f".{os.getpid()}.tmp")
+            tmp_report.write_text(log)
+            os.replace(tmp_report, report)
             os.replace(tmp, out)
-            out.with_suffix(".ptxas.txt").write_text(log)
             reports[name] = log
     finally:
         for proc, _, _ in procs.values():

@@ -6,7 +6,10 @@ A :class:`Mesh` names one axis of ``size`` shards, this process's
 and the device this rank computes on.  ``mesh.shape[axis]`` reads as in
 the reference's ``jax.sharding.Mesh``.  With ``group=None`` the mesh is
 one shard and the engine runs no collective.  :func:`sub_mesh` is the
-surviving mesh of degraded-mesh mode.
+surviving mesh of degraded-mesh mode.  :func:`spawn_ranks` runs a
+function on a :class:`Mesh` of ``world`` gloo processes on one device,
+the port's form of the reference's forced host devices
+(``--xla_force_host_platform_device_count``).
 
 :func:`make_production_mesh` and :func:`make_host_mesh` (port of
 ``repro.launch.mesh``) return ``torch.distributed.device_mesh.
@@ -18,7 +21,10 @@ so importing this module touches no process group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import os
+import tempfile
+import time
+from typing import Any, Callable
 
 import torch
 
@@ -69,6 +75,55 @@ def sub_mesh(mesh: Mesh, size: int) -> Mesh | None:
     if mesh.rank >= size:
         return None
     return Mesh(mesh.axis, size, mesh.rank, group, mesh.device)
+
+
+def _rank_main(rank, world, store_path, device, fn, args):
+    import torch.distributed as dist
+    torch.set_num_threads(1)          # the ranks share the host's cores
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        fn(make_mesh(group=dist.group.WORLD, device=device), *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable, world: int, *, device="cuda", args=(),
+                timeout_s: float | None = None) -> None:
+    """Run ``fn(mesh, *args)`` on ``world`` spawned processes, each rank
+    of one gloo group over ``device`` (several ranks share one card; gloo
+    takes their CUDA tensors through host memory), and return when every
+    rank has.  ``fn`` and ``args`` must pickle (a module-level function).
+    On a card the kernels are built here first, so the ranks only load
+    them.  Raises when a rank raises, dies or outlives ``timeout_s``;
+    the other ranks are killed."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        from repro_torch.kernels import _build
+        _build.build()
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        ctx = mp.start_processes(
+            _rank_main, args=(world, os.path.join(tmp, "store"), str(device),
+                              fn, tuple(args)),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = None if timeout_s is None else \
+            time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks did not finish in "
+                                       f"{timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
 
 
 def _device_mesh(shape: tuple, names: tuple, device):

@@ -532,9 +532,10 @@ def max_over_model(x, shard: ModelShard | None):
 
 
 def _gloo_cuda(x, group) -> bool:
-    """gloo on CUDA tensors: it gathers none (it segfaults in torch 2.11)
-    and may reduce-scatter none; the all-reduce forms below give the same
-    values."""
+    """gloo on CUDA tensors: the functional all-gather kills the process
+    (signal 11 under torch 2.11; ``tools/gloo_probe.py`` lists what
+    runs), so the gather takes the all-reduce form below, which gives the
+    same values."""
     import torch.distributed as dist
     mesh, d = group
     return x.is_cuda and dist.get_backend(mesh.get_group(d)) == "gloo"
@@ -555,11 +556,6 @@ def _all_gather(x, dim: int, group):
 
 def _reduce_scatter(x, dim: int, group):
     from torch.distributed import _functional_collectives as funcol
-    mesh, d = group
-    if _gloo_cuda(x, group):
-        per = x.shape[dim] // mesh.size(d)
-        return _all_reduce(x, "sum", group).narrow(
-            dim, mesh.get_local_rank(d) * per, per).contiguous()
     return _wait(funcol.reduce_scatter_tensor(x.contiguous(), "sum", dim,
                                               group))
 

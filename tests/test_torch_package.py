@@ -1,8 +1,8 @@
 """The port stands alone and keeps to its device rule.
 
-* Every module of ``repro_torch``, and ``chip_smoke``, imports with JAX
-  made unimportable, and leaves no module of the reference package
-  loaded.
+* Every module of ``repro_torch``, ``chip_smoke`` and the examples of
+  ``examples_torch/`` import with JAX made unimportable, and leave no
+  module of the reference package loaded.
 * Entry points that build tensors default to ``device="cuda"`` and raise
   when no card is present, rather than running on the CPU unasked.
 """
@@ -30,6 +30,14 @@ def test_port_imports_without_jax_or_reference():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
+        # the examples, imported as modules (their main() does not run)
+        import importlib.util, pathlib
+        examples = sorted(pathlib.Path("examples_torch").glob("*.py"))
+        assert len(examples) == 5, examples
+        for path in examples:
+            spec = importlib.util.spec_from_file_location(
+                "examples_torch_" + path.stem, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked
