@@ -172,7 +172,9 @@ Phases, one or more lines each:
    started in the background after phase 2 and read after phase
    15: qwen2-1.5b x train_4k, prefill_32k, decode_32k on 16 x 16 and
    phi3.5-moe x train_4k on 2 x 16 x 16, fake tensors, a ``fake`` process
-   group) and the roofline rows, host seconds and collective totals;
+   group) and the roofline rows, host seconds, collective totals and
+   each cell's memory record (peak GiB a device, arguments, temp, and
+   whether the peak fits the card);
 15. tensor-parallel compute over ``"model"``, after phase 14, on two
    gloo ranks sharing ``cuda:0`` as a ``(data 1, model 2)`` mesh
    (spawned; collectives through host memory): (a) phase 14a's phi3.5
@@ -185,7 +187,8 @@ Phases, one or more lines each:
    logits and SSM states within 1e-4 of the largest against the
    one-process prefill; (c) the dry run's train_4k cells of qwen2-1.5b,
    mamba2-780m, phi3.5-moe and jamba on 16 x 16, priced on the
-   tensor-parallel step (collective and compute seconds a device);
+   tensor-parallel step (collective and compute seconds a device, peak
+   GiB a device and whether it fits the card);
 16. the sequence over ``"model"``, after phase 15, on two gloo ranks
    sharing ``cuda:0`` as a ``(data 1, model 2)`` mesh: (a) phase 15a's
    phi3.5 step with ``seq_parallel=True`` (each rank 1,024 of the 2,048
@@ -202,8 +205,24 @@ Phases, one or more lines each:
    2,064 slots a rank), the tokens against the one-process
    ``generate()``'s, decode ms a token, cache GiB a rank; (d) the dry
    run's four train_4k cells with ``--seq-parallel`` beside 15c's, and
-   14c's qwen2 decode_32k cell, which reads its cache in place.
-17. the examples and the wave engine across ranks, after phase 16: (a)
+   14c's qwen2 decode_32k cell, which reads its cache in place (each
+   with its peak GiB a device and whether it fits the card).
+18. the dry run's memory record against the card's allocator, after
+   phase 16, on a one-rank NCCL group (``make_host_mesh(1, 1)``) on a
+   card emptied by ``torch.cuda.empty_cache()``: (a) phase 14a's cell,
+   phi3.5-moe at its published width, 2 layers, f32, remat full, an
+   AdamW train step on 4 x 2048; (b) qwen2-1.5b whole, a prefill of 2 x
+   2048; (c) qwen2-1.5b whole, one decode step, batch 8, on a cache of
+   8,192 slots; (d) mamba2-780m whole, f32, a prefill of 2 x 2048 with
+   the SSD kernel.  Each is priced by the dry run on a ``(1, 1)`` fake
+   mesh (``memory_estimates``, in a background process started after
+   phase 2, as 14c's cells are) and then run as the dry run's own
+   function on real zeros on the card: the allocator's baseline read
+   before the arguments are made, one warm-up call (cuBLAS's workspace
+   held), the peak reset, one measured call.  It prints the estimate,
+   the counter on the CUDA tensors and the allocator's peak (GiB) and
+   fails if an estimate is more than 10% from the allocator's peak;
+17. the examples and the wave engine across ranks, after phase 18: (a)
    the five scripts of ``examples_torch/`` (quickstart, graph_analytics
    ``--distributed``, distributed_pagerank, serve_queries, train_lm's
    300 steps of lm-100m and a second run resuming from step 300), each a
@@ -226,7 +245,7 @@ Phases, one or more lines each:
    there with ``snapshot_rounds=2`` and a fault before chunk 1 on every
    rank: the mesh shrinks 8 -> 7 and the answers equal (b)'s.
 
-Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14, 15, 16 and 17 (run in that
+Phases 4, 6, 8, 9, 10, 7, 11, 12, 13, 14, 15, 16, 18 and 17 (run in that
 order) are the main path: each zeroes the kernels' launch counters
 before it (each part of phase 13 before it) and reads them after, and fails if a kernel
 of its path was not launched (phase 6: the
@@ -239,7 +258,8 @@ phase 14: the bucket count as remat implies, in the sharded steps and in
 each pipeline stage, whose counters its processes report; phase 15: the
 bucket count as remat implies on each rank's steps, the SSD kernel once
 per layer on each rank's prefill; phase 16: the same on the
-sequence-parallel step and prefill; phase 17: both commit kernels and
+sequence-parallel step and prefill; phase 18: the bucket count in (a)
+and the SSD kernel once per layer in (d); phase 17: both commit kernels and
 the bucket count on the ranks of (b) and (c), whose counters they
 report; the examples of (a) run in subprocesses of their own and are
 not counted).
@@ -3570,6 +3590,14 @@ def stop_dryrun(procs):
         log.close()
 
 
+def fits(nbytes: int) -> str:
+    """Whether ``nbytes`` a device fit in this card's memory."""
+    import torch
+    total = torch.cuda.get_device_properties(0).total_memory
+    return (f"{'fits' if nbytes <= total else 'does not fit'} in the card's "
+            f"{total / 2 ** 30:.2f} GiB")
+
+
 def dryrun_rows(label, cells, out, tag="", quiet=False):
     """Print each cell's record (``tag``: the suffix its ``--tag`` gave
     it) and its roofline row; returns the rows (``quiet``: no print)."""
@@ -3586,10 +3614,15 @@ def dryrun_rows(label, cells, out, tag="", quiet=False):
             continue
         tot = rec["collectives"]["totals"]
         t = R.terms(rec)
+        mem = rec["memory"]
         say(f"{label}: {arch} x {shape} on {rec['mesh']}: host s op_cost "
             f"{rec['host_s']['op_cost']:.1f}, sharded run "
-            f"{rec['host_s']['sharded_run']:.1f} (at the lowest priority); "
-            f"state "
+            f"{rec['host_s']['sharded_run']:.1f}, memory on the whole "
+            f"depth {rec['host_s']['memory']:.1f} (at the lowest priority); "
+            f"peak {mem['peak_memory_in_bytes'] / 2 ** 30:.3f} GiB a device "
+            f"(arguments {mem['argument_size_in_bytes'] / 2 ** 30:.3f}, temp "
+            f"{mem['temp_size_in_bytes'] / 2 ** 30:.3f}): "
+            f"{fits(mem['peak_memory_in_bytes'])}; state "
             f"{rec['state_bytes_per_device'] / 2 ** 30:.3f} GiB a device; "
             f"op flops {rec['op_cost']['flops']:.4e}, dot "
             f"{rec['op_cost']['dot_flops']:.4e}, bytes "
@@ -4336,6 +4369,155 @@ def phase_sequence_parallel(device, dryrun):
     return launches
 
 
+# -- phase 18: the dry run's memory record against the card's allocator ----
+
+MEMORY_CASES = (   # label, arch, kind, layers (None: whole), batch x seq, run
+    ("a", PHI, "train", PHI_TRAIN_LAYERS, TRAIN_BATCH,
+     {"compute_dtype": "float32"}),
+    ("b", QWEN, "prefill", None, (2, 2048), {}),
+    ("c", QWEN, "decode", None, (8, 8192), {}),
+    ("d", MAMBA, "prefill", None, (2, 2048),
+     {"compute_dtype": "float32", "use_pallas": True}))
+MEMORY_RTOL = 0.10                 # estimate against the allocator's peak
+ONE_RANK = ((1, 1), ("data", "model"))
+ESTIMATES = "phase18_estimates.json"
+
+
+def memory_case(name, kind, layers, batch_seq):
+    """(config, shape) of a phase 18 case."""
+    import dataclasses
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.configs.base import ShapeConfig
+    cfg = ARCHS[name]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    b, s = batch_seq
+    return cfg, ShapeConfig(kind, s, b, kind)
+
+
+def memory_estimates(path):
+    """The dry run's records of phase 18's cases on a ``(1, 1)`` mesh,
+    priced on fake tensors as every cell is (``build_cell``, the default
+    depth extrapolation), written to ``path``: no card, no group."""
+    from repro_torch.launch import dryrun as D
+    recs = {}
+    for label, name, kind, layers, batch_seq, extra in MEMORY_CASES:
+        cfg, shape = memory_case(name, kind, layers, batch_seq)
+        recs[label] = D.build_cell(name, kind, False, extra, cfg=cfg,
+                                   shape=shape, mesh=ONE_RANK)
+    pathlib.Path(path).write_text(json.dumps(recs))
+
+
+def start_memory_estimates(out):
+    """:func:`memory_estimates` in a process of its own (``fake_mesh``
+    refuses to start beside a running group), at the lowest priority;
+    an entry of ``start_dryrun``'s list."""
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}",
+               OMP_NUM_THREADS="1")
+    log = open(out / "phase18_estimates.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.memory_estimates(sys.argv[1])", str(out / ESTIMATES)],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, env=env,
+        preexec_fn=lambda: os.nice(19))
+    return ("phase 18", "estimates", False, proc, log)
+
+
+def phase_memory(device, out):
+    """Phase 18: each case of ``MEMORY_CASES`` on a one-rank NCCL group
+    (``make_host_mesh(1, 1)``), the dry run's own function on real zeros
+    on the card: the dry run's estimate (read from ``out``), the counter
+    on the CUDA tensors and the allocator's peak.  The allocator's
+    baseline is read before the arguments are made; one warm-up call
+    (cuBLAS's workspace held), then the peak is reset and one call
+    measured.  Returns the kernels' launches in the measured calls."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.archs import ARCHS
+    from repro_torch.kernels.coalesce import bucket_count_kernel
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_kernel
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    estimates = json.loads((out / ESTIMATES).read_text())
+    counters = {"bucket_count": bucket_count_kernel,
+                "ssd_chunk": ssd_chunk_kernel}
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    ok, per_case = True, {}
+    try:
+        mesh = make_host_mesh(1, 1)
+        for label, name, kind, layers, batch_seq, extra in MEMORY_CASES:
+            cfg, shape = memory_case(name, kind, layers, batch_seq)
+            rcfg = D.run_config(cfg, shape, False, extra)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            call = D.cell_call(cfg, rcfg, shape, mesh, D.RULES,
+                               torch.float32, device=device)
+            warm = call[0](*call[1])
+            del warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in counters.values():
+                k.launches = 0
+            t1 = time.perf_counter()
+            got, counted = D.counted_call(*call)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated() - base
+            del got, call
+            torch.cuda.empty_cache()
+            rec = estimates[label]
+            est = rec["memory"]["peak_memory_in_bytes"]
+            cnt = counted["peak_memory_in_bytes"]
+            launched = {k: c.launches for k, c in counters.items()}
+            per_case[label] = launched
+            good = abs(est / peak - 1) <= MEMORY_RTOL
+            ok &= good
+            g = 2 ** 30
+            b, s = batch_seq
+            say(f"phase 18{label}: {name} "
+                f"{'whole' if layers is None else f'{layers} layers'}, "
+                f"{rcfg.compute_dtype}, {kind} {b} x {s}"
+                + (" (one step on a cache of that many slots)"
+                   if kind == "decode" else "")
+                + f", {', '.join(f'{k}={v}' for k, v in extra.items())}: "
+                f"estimate {est / g:.3f} GiB (the dry run on fake tensors, "
+                f"(1, 1), depth {rec['depth']}, host s "
+                f"{sum(rec['host_s'].values()):.1f}); counter on the CUDA "
+                f"tensors {cnt / g:.3f} GiB; allocator's peak {peak / g:.3f} "
+                f"GiB; estimate / allocator {est / peak:.4f} (bound "
+                f"1 +- {MEMORY_RTOL:g}: {good}), counter / allocator "
+                f"{cnt / peak:.4f}; estimate argument / output / alias / "
+                f"temp GiB {rec['memory']['argument_size_in_bytes'] / g:.3f}"
+                f" / {rec['memory']['output_size_in_bytes'] / g:.3f} / "
+                f"{rec['memory']['alias_size_in_bytes'] / g:.3f} / "
+                f"{rec['memory']['temp_size_in_bytes'] / g:.3f}, on the card "
+                f"{counted['argument_size_in_bytes'] / g:.3f} / "
+                f"{counted['output_size_in_bytes'] / g:.3f} / "
+                f"{counted['alias_size_in_bytes'] / g:.3f} / "
+                f"{counted['temp_size_in_bytes'] / g:.3f}; measured call "
+                f"{sec:.2f} s; launches {launched}")
+    finally:
+        dist.destroy_process_group()
+    launches = {k: sum(n[k] for n in per_case.values()) for k in counters}
+    say(f"phase 18: done in {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches}")
+    if not ok:
+        raise AssertionError(f"phase 18: an estimate is more than "
+                             f"{MEMORY_RTOL:.0%} from the allocator's peak")
+    # (a): once per MoE layer in the forward and once in its recompute;
+    # (d): once per layer
+    if (per_case["a"]["bucket_count"] != 2 * PHI_TRAIN_LAYERS or
+            per_case["d"]["ssd_chunk"] != ARCHS[MAMBA].num_layers):
+        raise AssertionError(f"phase 18: the kernels of its path launched "
+                             f"{per_case}")
+    return launches
+
+
 DIST_WORLD = 8                     # phase 17b-c: gloo ranks sharing cuda:0
 DIST_MAX_SUBROUNDS = 256           # phase 17b-c: a wave's sub-round cap
 REQUEUE_CAPACITY = 2 ** 14         # phase 17b: BFS with sub-round requeue
@@ -4702,7 +4884,7 @@ def main() -> int:
     # the dry-run cells of 14c, 15c and 16d, on the cores the phases leave
     # idle
     out = ROOT / "build" / "phase14_dryrun"
-    dryrun = start_dryrun(dryrun_cells(), out)
+    dryrun = start_dryrun(dryrun_cells(), out) + [start_memory_estimates(out)]
     try:
         return _phases(device, dryrun, out)
     finally:
@@ -4776,10 +4958,12 @@ def _phases(device, dryrun, out) -> int:
     parallel_launches, unsharded = phase_parallel(device)
     tp_launches = phase_tensor_parallel(device, unsharded, (dryrun, out))
     sp_launches = phase_sequence_parallel(device, (dryrun, out))
+    mem_launches = phase_memory(device, out)
     dist_launches = phase_distributed(device, inputs17, engine_ms)
-    mamba_launches += tp_launches["ssd_chunk"] + sp_launches["ssd_chunk"]
+    mamba_launches += tp_launches["ssd_chunk"] + sp_launches["ssd_chunk"] \
+        + mem_launches["ssd_chunk"]
     parallel_launches += tp_launches["bucket_count"] + \
-        sp_launches["bucket_count"]
+        sp_launches["bucket_count"] + mem_launches["bucket_count"]
     launches = {name: sum(part.get(name, 0) for part in (
         launches, engine_launches, slice_launches, tuned_launches,
         serve_launches, dist_launches)) for name in KERNELS}

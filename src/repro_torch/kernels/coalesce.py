@@ -26,7 +26,9 @@ from repro_torch.kernels.ref import bucket_count_ref
 @torch.library.custom_op("repro_torch::bucket_count", mutates_args=(),
                          device_types="cpu")
 def _bucket_count_op(owner: torch.Tensor, num_buckets: int) -> torch.Tensor:
-    return bucket_count_ref(owner, num_buckets)
+    # a storage of num_buckets counts, as the kernel's and the fake's (the
+    # plain version's is a view of num_buckets + 1)
+    return bucket_count_ref(owner, num_buckets).clone()
 
 
 @_bucket_count_op.register_kernel("cuda")

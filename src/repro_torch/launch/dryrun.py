@@ -31,18 +31,25 @@ this process as rank 0 and destroyed after each cell:
 * **FLOPs per device** (``device_cost``): the ops rank 0 runs in that
   sharded run, priced as ``op_cost`` is; a layer the divisibility
   fallback replicated over ``"model"`` counts whole on every card of the
-  group (``compute_note`` names them).
+  group (``compute_note`` names them);
+* **memory** (``memory``): the bytes rank 0 holds in that sharded run,
+  counted by :class:`repro_torch.runtime.memory.LiveBytes` on the fake
+  tensors, in the reference's ``memory_analysis`` fields
+  (``MEMORY_NOTE``).
 
-Every count is affine in the model's depth, so a model of more than 2
-blocks is priced at 1 and 2 blocks of its pattern and extrapolated
-(``depth`` in the record), where the reference counts a scanned block
-times its trip count.
+Every count but the memory is affine in the model's depth, so a model of
+more than 2 blocks is priced at 1 and 2 blocks of its pattern and
+extrapolated (``depth`` in the record), where the reference counts a
+scanned block times its trip count.  The peak is not: the moment it
+falls on moves between the head, the layers' backward and the optimizer
+as the depth grows, so the memory is counted on the whole model
+(``depth["memory_blocks"]``), still on fake tensors.
 
-The record keeps the reference's schema with two changes: ``jaxpr_cost``
-is ``op_cost``, and there is no ``xla_cost``.  ``memory`` is None: the
-compiled ``memory_analysis`` has no eager counterpart, and the dry run
-does not estimate one.  ``host_s`` is the host seconds of the two runs on
-the machine that ran them.  A cell whose function reads a value on the
+The record keeps the reference's schema with three changes: ``jaxpr_cost``
+is ``op_cost``, there is no ``xla_cost``, and ``memory`` has no
+``generated_code_size_in_bytes`` (eager code has none).  ``host_s`` is
+the host seconds of the runs on the machine that ran them (``memory``:
+the whole-depth count).  A cell whose function reads a value on the
 host or grows a data-dependent size fails (fake tensors hold no values)
 and writes its traceback to the cell's ``.err`` file.
 
@@ -66,12 +73,21 @@ import torch
 from repro_torch.configs.archs import ARCHS, skip_reason
 from repro_torch.configs.base import SHAPES, RunConfig
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.memory import LiveBytes, memory_record
 
 RULES = shd.ShardingRules(shd.TRAIN_RULES)
 MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
-MEMORY_NOTE = ("no eager counterpart of the compiled memory_analysis; not "
-               "estimated")
+MEMORY_NOTE = (
+    "bytes one device (rank 0) holds in the sharded run, counted op by op on "
+    "fake tensors (runtime/memory.py::LiveBytes) at the whole depth: "
+    "argument = the local parameters with the optimizer state (train) or "
+    "the cache (decode) and this rank's batch rows; output = the storages "
+    "the run returns; alias = those that are an argument's (the optimizer "
+    "updates parameters and state in place; decode returns a new cache); "
+    "temp = peak - argument - (output - alias); peak = the most live at "
+    "once, arguments included; an op's own scratch (a sort's, cuBLAS's "
+    "workspace) is not seen")
 
 
 # optimizer choice per scale: adafactor >= 100B total params
@@ -191,11 +207,12 @@ def collective_stats(log) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _zeros(tree):
-    """Zero tensors on the CPU of ``tree``'s shapes and dtypes (fake
+def _zeros(tree, device="cpu"):
+    """Zero tensors on ``device`` of ``tree``'s shapes and dtypes (fake
     under ``FakeTensorMode``)."""
     return shd.tree_map_with_path(
-        lambda _, x: torch.zeros(x.shape, dtype=x.dtype), tree)
+        lambda _, x: torch.zeros(x.shape, dtype=x.dtype, device=device),
+        tree)
 
 
 def compute_note(cfg, rules, sizes: dict, seq_parallel: bool = False
@@ -228,19 +245,18 @@ def compute_note(cfg, rules, sizes: dict, seq_parallel: bool = False
 
 def run_config(cfg, shape, multi_pod: bool, extra: dict,
                arch: str | None = None, shape_name: str | None = None):
-    return RunConfig(
-        model=cfg, shape=shape, multi_pod=multi_pod,
+    """The reference dry run's choices for the cell; ``extra`` overrides
+    any ``RunConfig`` field (``microbatches``, ``seq_parallel``,
+    ``compute_dtype``, ``use_pallas``, ...)."""
+    chosen = dict(
         optimizer=pick_optimizer(cfg),
         # remat only matters under grad
-        remat=extra.get("remat", "full" if shape.kind == "train" else "none"),
-        microbatches=extra.get("microbatches", _microbatches(
-            arch, shape_name) if arch in ARCHS and shape_name else 1),
-        moe_impl=extra.get("moe_impl", "aam"),
-        attn_causal_skip=extra.get("attn_causal_skip", False),
-        shard_grads=extra.get("shard_grads", False),
-        serve_tp=extra.get("serve_tp", False),
-        seq_parallel=extra.get("seq_parallel", False),
-    )
+        remat="full" if shape.kind == "train" else "none",
+        microbatches=_microbatches(arch, shape_name)
+        if arch in ARCHS and shape_name else 1,
+        moe_impl="aam")
+    return RunConfig(model=cfg, shape=shape, multi_pod=multi_pod,
+                     **{**chosen, **extra})
 
 
 def cell_cost(cfg, rcfg, shape, param_dtype):
@@ -268,41 +284,72 @@ def cell_cost(cfg, rcfg, shape, param_dtype):
                    shape.seq_len - 1)
 
 
-def sharded_run(cfg, rcfg, shape, mesh, rules, param_dtype):
-    """(state bytes per device, collective stats) of the cell's sharded
-    run on ``mesh``, rank 0's view."""
+def cell_call(cfg, rcfg, shape, mesh, rules, param_dtype, device="cpu"):
+    """The cell's sharded run on ``mesh`` as this process's rank holds it:
+    ``(fn, args, state, batch)`` where ``fn(*args)`` is the run (the
+    tensor-parallel train step, ``model.prefill`` with its cache placed in
+    the rules' layout, or ``model.decode_step`` on this rank's piece of the
+    cache), ``state`` the parameters with, by kind, the optimizer state or
+    the cache, and ``batch`` this rank's rows of the inputs.  Every tensor
+    is zeros made on ``device`` (fake under ``FakeTensorMode``)."""
     from repro_torch.models import model as M
     from repro_torch.train.optimizer import make_optimizer
     from repro_torch.train.train_step import (make_sharded_train_step,
                                               sharded_model)
-    params = shd.shard_tree(_zeros(M.param_specs(cfg, param_dtype)), rules,
-                            mesh)
-    batch = _zeros(M.input_specs(cfg, shape))
-    log = _collective_log_class()()
-    state = shd.local_bytes(params)
+    params = shd.shard_tree(_zeros(M.param_specs(cfg, param_dtype), device),
+                            rules, mesh)
+    batch = _zeros(M.input_specs(cfg, shape), device)
+    local = shd.batch_shard(batch, mesh)
     if shape.kind == "train":
         opt = make_optimizer(rcfg)
-        whole = {k: torch.zeros(v.shape, dtype=v.dtype)
-                 for k, v in M.param_specs(cfg, param_dtype).items()}
-        opt_state = shd.shard_tree(opt.init(whole), RULES, mesh)
+        opt_state = shd.shard_tree(opt.init(_zeros(
+            M.param_specs(cfg, param_dtype), device)), RULES, mesh)
         step = make_sharded_train_step(cfg, rcfg, opt, mesh, rules)
-        with log:
-            step(params, opt_state, 0, batch)
-        state += shd.local_bytes(opt_state)
-        return state, collective_stats(log)
+        return (step, (params, opt_state, 0, batch), (params, opt_state),
+                local)
     model, slots = sharded_model(cfg, rcfg)
     shd.bind(slots, params)
-    local = shd.batch_shard(batch, mesh)
     if shape.kind == "prefill":
-        with log:
-            M.prefill(cfg, rcfg, model, local, max_len=shape.seq_len)
-        return state, collective_stats(log)
+        return (lambda b: M.prefill(cfg, rcfg, model, b,
+                                    max_len=shape.seq_len),
+                (local,), (params,), local)
     cache = M.init_cache(cfg, rcfg, local["token"].shape[0], shape.seq_len,
-                         device="cpu", model=model)
+                         device=device, model=model)
+    return (lambda c, t: M.decode_step(cfg, rcfg, model, c, t,
+                                       shape.seq_len - 1),
+            (cache, local["token"]), (params, cache), {"token":
+                                                       local["token"]})
+
+
+def counted_call(fn, args, state, batch):
+    """``(out, memory)``: ``fn(*args)`` under :class:`LiveBytes` and the
+    reference's memory fields of it, the arguments being ``state`` and
+    ``batch`` as this rank holds them."""
+    counter = LiveBytes().known(args).known(state)
+    with counter:
+        out = fn(*args)
+    arguments = shd.local_bytes((state, batch))
+    return out, memory_record(arguments, (args, state), out, counter)
+
+
+def sharded_run(cfg, rcfg, shape, mesh, rules, param_dtype):
+    """(state bytes per device, collective stats) of the cell's sharded
+    run on ``mesh``, rank 0's view."""
+    fn, args, state, _ = cell_call(cfg, rcfg, shape, mesh, rules,
+                                   param_dtype)
+    log = _collective_log_class()()
     with log:
-        M.decode_step(cfg, rcfg, model, cache, local["token"],
-                      shape.seq_len - 1)
-    return state + shd.local_bytes(cache), collective_stats(log)
+        fn(*args)
+    return shd.local_bytes(state), collective_stats(log)
+
+
+def cell_memory(cfg, rcfg, shape, dims, names, rules, param_dtype) -> dict:
+    """The memory record of the cell's sharded run at ``cfg``'s whole
+    depth, rank 0's, on fake tensors in a ``fake`` group of ``dims``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_mesh(dims, names) as dm, FakeTensorMode():
+        call = cell_call(cfg, rcfg, shape, dm, rules, param_dtype)
+        return counted_call(*call)[1]
 
 
 def _at_depth(cfg, blocks: int):
@@ -364,12 +411,13 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     ``shape`` and ``mesh`` (``(dims, names)``) replace the arch's config,
     the shape and the production mesh (tests price smoke widths).
 
-    Every count of a cell — FLOPs, bytes, state bytes, each collective's
-    count and bytes — is affine in the model's depth: each block of the
-    pattern adds the same work, gathers and reductions.  So a model of
-    more than 2 blocks is priced at 1 and 2 blocks and its counts
-    extrapolated (``extrapolate=False`` runs it whole); ``depth`` in the
-    record says which."""
+    Every count of a cell but its memory — FLOPs, bytes, state bytes,
+    each collective's count and bytes — is affine in the model's depth:
+    each block of the pattern adds the same work, gathers and reductions.
+    So a model of more than 2 blocks is priced at 1 and 2 blocks and
+    those counts extrapolated (``extrapolate=False`` runs it whole); the
+    memory is counted on the whole model; ``depth`` in the record says
+    which."""
     cfg = cfg or ARCHS[arch]
     shape = shape or SHAPES[shape_name]
     dims, names = mesh or MESHES[multi_pod]
@@ -388,6 +436,12 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
     priced = runs[0] if len(runs) == 1 else _affine(*runs, cfg.num_blocks)
     priced["host_s"] = {k: sum(r["host_s"][k] for r in runs)
                         for k in runs[0]["host_s"]}
+    # the peak is not affine in depth (the moment it falls on moves
+    # between the head, the layers and the optimizer as depth grows):
+    # memory is counted on the whole model
+    t0 = time.perf_counter()
+    memory = cell_memory(cfg, rcfg, shape, dims, names, rules, param_dtype)
+    priced["host_s"]["memory"] = time.perf_counter() - t0
     cost = priced["op_cost"]
     by_prim = cost.pop("by_prim")
     cost["top_prims"] = dict(sorted(by_prim.items(),
@@ -410,9 +464,10 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         "optimizer": rcfg.optimizer,
         "microbatches": rcfg.microbatches,
         "moe_impl": rcfg.moe_impl,
-        "depth": {"blocks": cfg.num_blocks, "priced_blocks": list(depths)},
+        "depth": {"blocks": cfg.num_blocks, "priced_blocks": list(depths),
+                  "memory_blocks": cfg.num_blocks},
         "host_s": priced["host_s"],
-        "memory": None, "memory_note": MEMORY_NOTE,
+        "memory": memory, "memory_note": MEMORY_NOTE,
         "compute_note": compute_note(cfg, rules, dict(zip(names, dims)),
                                      rcfg.seq_parallel and
                                      shape.kind != "decode"),
@@ -424,6 +479,7 @@ def build_cell(arch: str, shape_name: str, multi_pod: bool,
         "params_total": cfg.param_count(),
         "params_active": n_act,
     }
+    print(f"memory: {record['memory']}")
     print(f"state_bytes/device: {record['state_bytes_per_device'] / 2**30:.2f}"
           f" GiB")
     print(f"op flops={cost['flops']:.3e} dot={cost['dot_flops']:.3e} "

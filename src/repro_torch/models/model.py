@@ -108,7 +108,9 @@ def prefill(cfg: ModelConfig, rcfg: RunConfig, model, batch,
     logits, cache, _ = _forward(cfg, rcfg, model, batch, mode="prefill")
     if max_len is not None:
         cache = place_cache(cfg, model, cache, max_len)
-    return whole_logits(cfg, model, logits[:, -1:]), cache
+    # a copy: a view of the last position would keep every position's
+    # logits alive after the call
+    return whole_logits(cfg, model, logits[:, -1:].clone()), cache
 
 
 def _cache_modules(cfg: ModelConfig, model):

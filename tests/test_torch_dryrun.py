@@ -27,6 +27,7 @@ from repro_torch.launch import dryrun as D
 from repro_torch.launch import roofline as R
 from repro_torch.models import model as M
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.memory import FIELDS
 from repro_torch.train.optimizer import make_optimizer
 
 MESH = ((2, 2), ("data", "model"))
@@ -99,7 +100,18 @@ def test_cell_prices_fake_as_real(arch, kind):
             f"c10d_functional.{packet}", 0)
     assert coll["per_op"]["all-gather"]["count"] > 0   # weights gathered
     assert coll["totals"]["count"] == sum(counts.values())
-    assert rec["memory"] is None and rec["memory_note"]
+    mem = rec["memory"]                 # bytes rank 0 holds
+    assert set(mem) == set(FIELDS) and rec["memory_note"]
+    rows = sum(x.numel() * x.element_size() // (2 if x.dim() else 1)
+               for k, x in M.input_specs(cfg, shape).items() if k != "pos")
+    assert mem["argument_size_in_bytes"] == want + rows
+    if kind != "decode":                # train updates its state in place
+        assert mem["alias_size_in_bytes"] == (want if kind == "train"
+                                              else 0)
+    assert mem["peak_memory_in_bytes"] == mem["argument_size_in_bytes"] + \
+        mem["output_size_in_bytes"] - mem["alias_size_in_bytes"] + \
+        mem["temp_size_in_bytes"]
+    assert all(mem[f] > 0 for f in FIELDS if f != "alias_size_in_bytes")
     assert rec["mesh_shape"] == {"data": 2, "model": 2}
     assert rec["n_devices"] == 4
 
@@ -187,9 +199,12 @@ def test_depth_extrapolation_is_exact(arch, kind):
     got = D.build_cell(arch, kind, False, cfg=cfg, shape=shape, mesh=MESH)
     whole = D.build_cell(arch, kind, False, cfg=cfg, shape=shape, mesh=MESH,
                          extrapolate=False)
-    assert got["depth"] == {"blocks": 3, "priced_blocks": [1, 2]}
-    assert whole["depth"] == {"blocks": 3, "priced_blocks": [3]}
-    for key in ("op_cost", "state_bytes_per_device", "collectives"):
+    assert got["depth"] == {"blocks": 3, "priced_blocks": [1, 2],
+                            "memory_blocks": 3}
+    assert whole["depth"] == {"blocks": 3, "priced_blocks": [3],
+                              "memory_blocks": 3}
+    for key in ("op_cost", "state_bytes_per_device", "collectives",
+                "memory"):
         assert got[key] == whole[key], key
     real = D.cell_cost(cfg, D.run_config(cfg, shape, False, {}), shape,
                        torch.float32)
